@@ -20,6 +20,27 @@ Phases, each printed with the seconds it took:
    (train and eval) and a whole f64 epoch (loss, grad, eval losses). In f32
    the gradient follows the rounding of the adaptive step sequence, which
    a one-ulp probe prints.
+4. kernels 2-3: the dense value+Jacobian kernel against its plain version
+   as kernel 1 is held in phase 2 (du and J, NaN positions exact); the
+   whole-solve Rosenbrock23 kernel against its plain version on case2's 30
+   initial states at the initial params, its history buffers filled with
+   NaN before the launch (f32: ys within 5e-4 of each state component's
+   largest value, success equal; f64: n_steps and status exact, ys within
+   1e-9 of each component's largest value), against the port's early-exit
+   while driver (lowrank) at 5e-4 of each component's largest, and at
+   B=4099 in f32 and f64, beside how far one ulp of y0 moves the plain f64
+   solve; then both kernels' device times against their plain versions';
+5. dense slice: case2 with jac_mode='dense' as shipped, 2 guarded epochs
+   through run_case with every launch counter set to 0 just before and read
+   just after; the kernel path against the plain path at rtol 1e-4 on the
+   f32 losses (train and eval) at the initial and the trained params, and
+   on a whole f64 dense epoch (loss, grad, eval losses);
+6. fused eval: phase 3's trained params through the whole-solve evaluator
+   (counters set to 0 just before, read just after) and the while driver on
+   the 30 experiments, held against each other at 5e-4 of each state
+   component's largest value, then timed in 12
+   interleaved rounds of 10 calls each (median), as bench.py times its
+   eval pair.
 
 The last lines are the card (nvidia-smi), one JSON line with every
 kernel's numbers, and the result line
@@ -33,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -105,10 +127,10 @@ def device_ms(fn, n: int = 200) -> float:
     return start.elapsed_time(stop) / (5 * n)
 
 
-def eager_ms(fn, n: int = 500) -> float:
+def eager_ms(fn, n: int = 500, warmup: int = 20) -> float:
     """Milliseconds per call of eager calls back to back (host launch cost
     included), timed with CUDA events after a warm-up."""
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -156,14 +178,13 @@ def arrhenius_bound_ms(batch, ns, nr, dtype):
     # per lane: ns logs, a (ns x nr) dot, the T feature, bias, cap, nr exps,
     # an (nr x ns) dot and one division
     flops = batch * (ns + 2 * ns * nr + 4 * nr + nr + 2 * ns * nr + 1)
-    t_bytes = n_bytes / _HBM_BYTES_PER_S * 1e3
-    t_flops = flops / _PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+    return _bound(n_bytes, flops, dtype)
 
 
-def run_slice(device: str, gen: torch.Generator) -> dict:
+def run_slice(device: str, gen: torch.Generator):
     """Phase 3 on ``device``: the case2 main path and its checks. Returns
-    the kernel row's main-path numbers (launches, epoch times)."""
+    the kernel row's main-path numbers (launches, epoch times), the setup
+    and the trained params."""
     from crnn_tpu_torch.cases.base import run_case
     from crnn_tpu_torch.cases.case2 import Case2Config, build
     from crnn_tpu_torch.data.truth import (CASE2_EA, CASE2_LOGA,
@@ -185,7 +206,7 @@ def run_slice(device: str, gen: torch.Generator) -> dict:
     sync()
     t_build = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as out_dir:
-        _, hist = run_case(setup, n_epoch, out_dir=out_dir, log_every=1)
+        state, hist = run_case(setup, n_epoch, out_dir=out_dir, log_every=1)
         n_lines = len((Path(out_dir) / "case2" / "metrics.jsonl")
                       .read_text().splitlines())
     sync()
@@ -268,7 +289,7 @@ def run_slice(device: str, gen: torch.Generator) -> dict:
     compare_epoch("f64 grad", gk, gp)
     compare_epoch("f64 eval losses", mk.loss_exp, mp.loss_exp)
     compare_epoch("f64 grad norm", mk.grad_norm, mp.grad_norm)
-    return row
+    return row, setup, state.params
 
 
 def forward_losses(setup, params, perm, cfg):
@@ -298,6 +319,391 @@ def compare_epoch(name, a, b):
         fail(f"kernel path {name} disagrees with the plain path")
 
 
+def rhs_jac_bound_ms(batch, ns, nr, dtype):
+    """(bound_ms, bound_by) of the fused value+Jacobian: y, weights read
+    once, du and J written once, against its flops."""
+    itemsize = torch.finfo(dtype).bits // 8
+    ns1 = ns + 1
+    n_bytes = itemsize * (batch * (2 * ns1 + ns1 * ns1)
+                          + ns1 * nr + nr + ns * nr)
+    # per lane: the RHS as in kernel 1, dlog (ns divisions), dt_feat (2),
+    # rates * w_out (ns*nr), the x-block (ns*ns*(2*nr + 1)) and the T column
+    # (ns*(3*nr + 1))
+    rhs = ns + 2 * ns * nr + 4 * nr + nr + 2 * ns * nr + 1
+    flops = batch * (rhs + ns + 2 + ns * nr + ns * ns * (2 * nr + 1)
+                     + ns * (3 * nr + 1))
+    return _bound(n_bytes, flops, dtype)
+
+
+def rb23_step_flops(ns, nr):
+    """Flops of one lane's Rosenbrock23 step in the whole-solve kernel:
+    three RHS evaluations, the factors and the Woodbury inner matrix, its
+    Gauss-Jordan inverse, three W-solves, the stage combinations, the error
+    norm and the controller (transcendentals count as one)."""
+    ns1 = ns + 1
+    rhs = ns + 2 * ns * nr + 5 * nr + 2 * ns * nr + 1
+    factors = 2 * ns + 3 + nr * nr * (2 * ns + 3)
+    inverse = nr * (1 + 2 * nr + (nr - 1) * 4 * nr)
+    wsolve = ns + 2 * ns * nr + 4 * nr + 2 * nr * nr + 2 * ns * nr + 2 * ns
+    stages = 2 * ns1 + 2 * ns1 + 2 * ns1 + 6 * ns1 + 5 * ns1
+    norm = 6 * ns1 + 2
+    return 3 * rhs + factors + inverse + 3 * wsolve + stages + norm + 12
+
+
+def rb23_bound_ms(n_steps, ns, nr, dtype):
+    """(bound_ms, bound_by) of the whole solve for this run's data: y0 and
+    the weights read once; the history rows the lanes visit (t, t_new, acc
+    and y, y_new, f0, f2), status, n_steps and y_final written once; the
+    flops of the steps the lanes take plus the initial-dt probe."""
+    itemsize = torch.finfo(dtype).bits // 8
+    ns1 = ns + 1
+    b = n_steps.numel()
+    steps = int(n_steps.sum())
+    n_bytes = (itemsize * (b * ns1 + ns1 * nr + nr + ns * nr)
+               + itemsize * steps * (3 + 4 * ns1) + b * (8 + itemsize * ns1))
+    rhs = ns + 2 * ns * nr + 5 * nr + 2 * ns * nr + 1
+    flops = steps * rb23_step_flops(ns, nr) + b * (2 * rhs + 12 * ns1 + 20)
+    return _bound(n_bytes, flops, dtype)
+
+
+def _bound(n_bytes, flops, dtype):
+    t_bytes = n_bytes / _HBM_BYTES_PER_S * 1e3
+    t_flops = flops / _PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
+def check_rhs_jac_kernel(gen) -> dict:
+    """Kernel 2 against its plain version on the card, as kernel 1 is held
+    in phase 2, then its device time. Returns its row's numbers."""
+    from crnn_tpu_torch.ops.crnn_kernels import (
+        arrhenius_rhs_jac_batched, arrhenius_rhs_jac_batched_reference)
+
+    row = {}
+    cases = [(b, torch.float32) for b in (20, 30, 4099, 65536)]
+    cases.append((30, torch.float64))
+    for batch, dtype in cases:
+        rtol, atol = _TOL[dtype]
+        for edges in (False, True, "exp-cap"):
+            (y, w_in, w_b, w_out), (lb, ub) = arrhenius_inputs(
+                batch, dtype, gen, bool(edges))
+            if edges == "exp-cap":
+                # every rate above exp(32), w_out of one sign (as in phase 2)
+                w_b, w_out = w_b + 40.0, w_out.abs()
+            out = arrhenius_rhs_jac_batched(y, w_in, w_b, w_out, lb, ub)
+            ref = arrhenius_rhs_jac_batched_reference(y, w_in, w_b, w_out,
+                                                      lb, ub)
+            torch.cuda.synchronize()
+            (ok_du, err_du), (ok_j, err_j) = (compare(o, r, rtol, atol)
+                                              for o, r in zip(out, ref))
+            err = max(err_du, err_j)
+            print(f"  arrhenius_rhs_jac B={batch} {str(dtype)[6:]} "
+                  f"edges={edges}: max_abs_err du={err_du:.3e} "
+                  f"J={err_j:.3e} ok={ok_du and ok_j}")
+            if not (ok_du and ok_j):
+                fail(f"arrhenius_rhs_jac disagrees with its plain version at "
+                     f"B={batch} {dtype} edges={edges}")
+            if batch == 20 and dtype == torch.float32 and edges is False:
+                row["max_abs_err"] = err
+    for batch in (20, 30, 4099, 65536):
+        (y, w_in, w_b, w_out), (lb, ub) = arrhenius_inputs(
+            batch, torch.float32, gen, False)
+        times = {
+            "kernel_device": device_ms(lambda: arrhenius_rhs_jac_batched(
+                y, w_in, w_b, w_out, lb, ub)),
+            "plain_device": device_ms(
+                lambda: arrhenius_rhs_jac_batched_reference(
+                    y, w_in, w_b, w_out, lb, ub)),
+            "kernel_eager": eager_ms(lambda: arrhenius_rhs_jac_batched(
+                y, w_in, w_b, w_out, lb, ub)),
+            "plain_eager": eager_ms(
+                lambda: arrhenius_rhs_jac_batched_reference(
+                    y, w_in, w_b, w_out, lb, ub)),
+        }
+        bound, bound_by = rhs_jac_bound_ms(batch, 6, 3, torch.float32)
+        print(f"  arrhenius_rhs_jac B={batch} f32 ms/call: " + ", ".join(
+            f"{k}={v:.5f}" for k, v in times.items())
+            + f", bound={bound:.3e} ({bound_by})")
+        if batch == 20:
+            row.update(ms=times["kernel_device"],
+                       plain_ms=times["plain_device"],
+                       ms_eager=times["kernel_eager"],
+                       plain_ms_eager=times["plain_eager"], bound_ms=bound,
+                       bound_by=bound_by)
+    return row
+
+
+def case2_solve_kwargs(cfg):
+    """The whole-solve kernel's solver arguments for ``cfg``."""
+    return dict(max_steps=cfg.max_steps, t0=0.0,
+                t1=float(cfg.datasize * cfg.tstep), rtol=cfg.rtol,
+                atol=cfg.atol, lb=cfg.lb, ub=cfg.ub)
+
+
+def while_solve(cfg, u0, w, saveat):
+    """The port's early-exit eval solve (kernel 1, lowrank) -> (ys, success)."""
+    from crnn_tpu_torch.ode.batch_solve import batch_odesolve_rb23
+    from crnn_tpu_torch.ops.crnn_kernels import (make_arrhenius_factor_op,
+                                                 make_arrhenius_ops)
+
+    rhs_op, _ = make_arrhenius_ops(cfg.lb, cfg.ub)
+    factor_op = make_arrhenius_factor_op(cfg.lb, cfg.ub)
+    consts = case2_solve_kwargs(cfg)
+    with torch.no_grad():
+        sol = batch_odesolve_rb23(
+            lambda t, y, w_: rhs_op(y, w_.w_in, w_.w_b, w_.w_out),
+            lambda t, y, w_: factor_op(y, w_.w_in, w_.w_b, w_.w_out),
+            u0, 0.0, consts["t1"], saveat, args=w, rtol=cfg.rtol,
+            atol=cfg.atol, max_steps=cfg.max_steps, unroll="while",
+            jac_mode="lowrank")
+    return sol.ys, sol.success
+
+
+def rel_err_components(a, b):
+    """Largest error of each state component over that component's largest
+    value, over lanes and save points. The T column is constant at ~330 K,
+    so a ratio over the largest entry of all would let the species (0-2.2)
+    be off by ~0.17."""
+    return float(((a - b).abs().amax(dim=(0, 1))
+                  / b.abs().amax(dim=(0, 1))).max())
+
+
+def solve_kernel_vs_plain(u0, w, saveat, consts, label):
+    """Kernel 3 (histories filled with NaN first) against its plain version
+    on the same inputs; fails the run if they disagree: in f32 ys within
+    5e-4 of each state component's largest value and success equal (the
+    step sequence follows rounding); in f64 n_steps and status exact and ys
+    within 1e-9 of each component's largest value. Returns (max abs error
+    of ys, kernel outputs, kernel ys, plain ys)."""
+    from crnn_tpu_torch.ops.rb23_solve_kernel import (
+        _dense_output, arrh_rb23_solve, arrh_rb23_solve_reference)
+
+    out = arrh_rb23_solve(u0, w.w_in, w.w_b, w.w_out, hist_fill=math.nan,
+                          **consts)
+    ref = arrh_rb23_solve_reference(u0, w.w_in, w.w_b, w.w_out, **consts)
+    ys = _dense_output(saveat, 0.0, u0, *out[:7])
+    ys_ref = _dense_output(saveat, 0.0, u0, *ref[:7])
+    torch.cuda.synchronize()
+    ok = bool(torch.isfinite(ys).all()) and torch.equal(out[7] == 1,
+                                                         ref[7] == 1)
+    rel_c = rel_err_components(ys, ys_ref)
+    if u0.dtype == torch.float32:
+        ok = ok and rel_c < 5e-4
+    else:
+        ok = (ok and torch.equal(out[7], ref[7]) and torch.equal(out[8], ref[8])
+              and rel_c < 1e-9)
+    err = float((ys - ys_ref).abs().max())
+    print(f"  arrh_rb23_solve {label} {str(u0.dtype)[6:]} vs plain: "
+          f"ys max err {rel_c:.3e} of each component's largest (max abs "
+          f"{err:.3e}), n_steps "
+          f"{int(out[8].min())}-{int(out[8].max())} (plain "
+          f"{int(ref[8].min())}-{int(ref[8].max())}), success "
+          f"{int((out[7] == 1).sum())}/{u0.shape[0]} ok={ok}")
+    if not ok:
+        fail(f"arrh_rb23_solve disagrees with its plain version ({label}, "
+             f"{u0.dtype})")
+    return err, out, ys, ys_ref
+
+
+def ulp_witness(u0, w, saveat, consts, ys_kernel, ys_plain):
+    """How far one ulp of y0 moves the plain f64 solve, printed beside the
+    kernel's distance from the plain version (no gate): the stiff W-solve
+    amplifies a one-ulp difference, of y0 here and of exp/log/pow between
+    CUDA and torch in the kernel, to the same order."""
+    from crnn_tpu_torch.ops.rb23_solve_kernel import (
+        _dense_output, arrh_rb23_solve_reference)
+
+    nudged = torch.nextafter(u0, u0.new_full((), math.inf))
+    out = arrh_rb23_solve_reference(nudged, w.w_in, w.w_b, w.w_out, **consts)
+    ys_nudged = _dense_output(saveat, 0.0, nudged, *out[:7])
+
+    def species_err(a, b):  # T moves by its own ulp in the nudged y0
+        err = (a - b)[..., :-1].abs().amax(dim=(1, 2))
+        return (f"{rel_err_components(a, b):.3e} of each component's largest"
+                f" (species max abs {float(err.max()):.3e}, worst lanes "
+                f"{sorted(torch.topk(err, 5).indices.tolist())})")
+
+    print(f"  f64 one-ulp witness B={u0.shape[0]}: plain(y0 + 1 ulp) vs "
+          f"plain(y0) {species_err(ys_nudged, ys_plain)}; kernel vs plain "
+          f"{species_err(ys_kernel, ys_plain)}")
+
+
+def check_solve_kernel(setup, gen) -> dict:
+    """Kernel 3 against its plain version and the while driver on case2's
+    30 initial states at the initial params, then at B=4099 (f32 and f64,
+    with the one-ulp witness), then its device time at B=30. Returns its
+    row's numbers."""
+    from crnn_tpu_torch.cases.case2 import Case2Config, make_u0
+    from crnn_tpu_torch.ops.rb23_solve_kernel import (
+        arrh_rb23_solve, arrh_rb23_solve_reference, make_arrhenius_fused_solve)
+
+    row = {}
+    cfg = Case2Config()
+    consts = case2_solve_kwargs(cfg)
+    ds = setup.dataset
+    for dtype in (torch.float32, torch.float64):
+        u0 = ds.u0.to(dtype).contiguous()
+        w = setup.weights_fn(setup.init_params.to(dtype))
+        err, out, _, _ = solve_kernel_vs_plain(u0, w, ds.ts.to(dtype), consts,
+                                               "case2 u0, initial params")
+        if dtype == torch.float32:
+            row["max_abs_err"] = err
+            n_steps = out[8]
+    u0, w = ds.u0.contiguous(), setup.weights_fn(setup.init_params)
+    fused = make_arrhenius_fused_solve(cfg.ns, cfg.nr, cfg.lb, cfg.ub, 0.0,
+                                       consts["t1"], ds.ts, cfg.rtol, cfg.atol,
+                                       cfg.max_steps)
+    ys_f, ok_f = fused(u0, w)
+    ys_w, ok_w = while_solve(cfg, u0, w, ds.ts)
+    rel = rel_err_components(ys_f, ys_w)
+    ok = rel < 5e-4 and torch.equal(ok_f, ok_w)
+    print(f"  fused solve vs while driver (initial params): max err "
+          f"{rel:.3e} of each component's largest, success "
+          f"{int(ok_f.sum())}/{int(ok_w.sum())} ok={ok}")
+    if not ok:
+        fail("the fused solve disagrees with the while driver")
+
+    big = make_u0(gen, Case2Config(n_exp_train=4099, n_exp_test=0),
+                  torch.float32).cuda()
+    solve_kernel_vs_plain(big, w, ds.ts, consts, "B=4099")
+    big64, w64, ts64 = big.double(), setup.weights_fn(
+        setup.init_params.double()), ds.ts.double()
+    _, _, ys64, ys64_ref = solve_kernel_vs_plain(big64, w64, ts64, consts,
+                                                 "B=4099")
+    ulp_witness(big64, w64, ts64, consts, ys64, ys64_ref)
+
+    def kernel():
+        return arrh_rb23_solve(u0, w.w_in, w.w_b, w.w_out, **consts)
+
+    def plain():
+        return arrh_rb23_solve_reference(u0, w.w_in, w.w_b, w.w_out, **consts)
+
+    times = {"kernel_device": device_ms(kernel, n=20),
+             "kernel_eager": eager_ms(kernel, n=50, warmup=5),
+             "plain_eager": eager_ms(plain, n=5, warmup=2)}
+    bound, bound_by = rb23_bound_ms(n_steps, cfg.ns, cfg.nr, torch.float32)
+    longest = int(n_steps.max())
+    print(f"  arrh_rb23_solve B=30 f32 ms/call: " + ", ".join(
+        f"{k}={v:.5f}" for k, v in times.items())
+        + f", bound={bound:.3e} ({bound_by}); serial chain: the longest lane "
+        f"takes {longest} steps, {times['kernel_device'] / longest * 1e3:.2f}"
+        f" us of kernel time per step; steps summed over lanes "
+        f"{int(n_steps.sum())}")
+    print("  plain_ms of arrh_rb23_solve is eager (host clock included): the "
+          "plain version checks on the host once per step whether a lane "
+          "still runs, so it cannot be captured in a CUDA graph")
+    row.update(ms=times["kernel_device"], plain_ms=times["plain_eager"],
+               ms_eager=times["kernel_eager"], bound_ms=bound,
+               bound_by=bound_by, longest_lane_steps=longest)
+    return row
+
+
+def run_dense_slice(ds, gen) -> dict:
+    """Phase 5: case2 with jac_mode='dense' as shipped on the card, its
+    launches, and the kernel path against the plain path."""
+    from crnn_tpu_torch.cases.base import run_case
+    from crnn_tpu_torch.cases.case2 import Case2Config, build
+    from crnn_tpu_torch.ops.crnn_kernels import (arrhenius_rhs_batched,
+                                                 arrhenius_rhs_jac_batched)
+
+    cfg = Case2Config(jac_mode="dense")
+    n_epoch = 2
+    setup = build(cfg, dataset=ds)
+    arrhenius_rhs_batched.launches = 0
+    arrhenius_rhs_jac_batched.launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        state, hist = run_case(setup, n_epoch, out_dir=out_dir, log_every=1)
+    torch.cuda.synchronize()
+    launches = arrhenius_rhs_jac_batched.launches
+    print(f"  dense: epochs_s={hist['epoch_s']}; arrhenius_rhs_jac launches="
+          f"{launches} ({launches / n_epoch:.0f}/epoch), arrhenius_rhs "
+          f"launches={arrhenius_rhs_batched.launches}")
+    if launches == 0 or arrhenius_rhs_batched.launches == 0:
+        fail("the dense slice launched a kernel of its path 0 times")
+    for k in ("loss_train", "loss_val", "grad_norm"):
+        if not all(math.isfinite(v) for v in hist[k]):
+            fail(f"dense slice: non-finite {k}: {hist[k]}")
+    if hist["n_skipped"]:
+        fail(f"dense slice: {hist['n_skipped']} epochs discarded")
+
+    perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
+    plain = build(Case2Config(jac_mode="dense", rhs_plain=True), dataset=ds)
+    for name, params in (("initial", setup.init_params),
+                         ("trained", state.params)):
+        got, want = (forward_losses(s, params, perm, cfg)
+                     for s in (setup, plain))
+        compare_epoch(f"dense f32 train loss ({name} params)", got[0], want[0])
+        compare_epoch(f"dense f32 eval losses ({name} params)", got[1],
+                      want[1])
+
+    ds64 = ds._replace(**{k: getattr(ds, k).double() for k in (
+        "u0", "ys", "ys_clean", "ts", "yscale")})
+    p64 = setup.init_params.double()
+    results = []
+    for plain_rhs in (False, True):
+        s = build(Case2Config(jac_mode="dense", dtype="float64",
+                              rhs_plain=plain_rhs), dataset=ds64)
+        loss, g = s.trainer.value_and_grad(p64, perm)
+        _, m = s.trainer.epoch(s.trainer.init(p64), perm)
+        results.append((loss, g, m))
+    (lk, gk, mk), (lp, gp, mp) = results
+    compare_epoch("dense f64 loss", lk, lp)
+    compare_epoch("dense f64 grad", gk, gp)
+    compare_epoch("dense f64 eval losses", mk.loss_exp, mp.loss_exp)
+    compare_epoch("dense f64 grad norm", mk.grad_norm, mp.grad_norm)
+    return {"launches": launches, "launches_per_epoch": launches / n_epoch,
+            "dense_epoch_s": hist["epoch_s"]}
+
+
+def run_fused_eval(setup, params) -> dict:
+    """Phase 6: the trained params through the whole-solve evaluator (the
+    main path of kernel 3) and the while driver; then both timed."""
+    from crnn_tpu_torch.cases.case2 import Case2Config
+    from crnn_tpu_torch.ops.rb23_solve_kernel import (arrh_rb23_solve,
+                                                      make_arrhenius_fused_solve)
+
+    cfg = Case2Config()
+    ds = setup.dataset
+    u0, w = ds.u0.contiguous(), setup.weights_fn(params)
+    fused = make_arrhenius_fused_solve(cfg.ns, cfg.nr, cfg.lb, cfg.ub, 0.0,
+                                       float(cfg.datasize * cfg.tstep), ds.ts,
+                                       cfg.rtol, cfg.atol, cfg.max_steps)
+    arrh_rb23_solve.launches = 0
+    ys_f, ok_f = fused(u0, w)
+    torch.cuda.synchronize()
+    launches = arrh_rb23_solve.launches
+    ys_w, ok_w = while_solve(cfg, u0, w, ds.ts)
+    rel = rel_err_components(ys_f, ys_w)
+    ok = (launches > 0 and rel < 5e-4 and torch.equal(ok_f, ok_w)
+          and bool(torch.isfinite(ys_f).all()))
+    print(f"  fused eval (trained params): launches={launches}, vs while "
+          f"driver max err {rel:.3e} of each component's largest, success "
+          f"{int(ok_f.sum())}/{int(ok_w.sum())} ok={ok}")
+    if not ok:
+        fail("the fused eval disagrees with the while driver or did not "
+             "launch its kernel")
+
+    variants = (("eval_while_ms", lambda: while_solve(cfg, u0, w, ds.ts)),
+                ("eval_fused_ms", lambda: fused(u0, w)))
+    for _, fn in variants:
+        fn()
+    samples = {name: [] for name, _ in variants}
+    for _ in range(12):
+        for name, fn in variants:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            samples[name].append((time.perf_counter() - t0) / 10 * 1e3)
+    pair = {name: statistics.median(xs) for name, xs in samples.items()}
+    print(f"eval_while_ms={pair['eval_while_ms']:.4f} "
+          f"eval_fused_ms={pair['eval_fused_ms']:.4f} (median of 12 "
+          f"interleaved rounds of 10 calls, B=30, trained params)")
+    for name, xs in samples.items():
+        print(f"  {name} rounds: {[round(x, 4) for x in xs]}")
+    return {"launches": launches, **pair}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -323,7 +729,8 @@ def main() -> int:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
-        libs = _build.build("arrhenius_rhs")
+        libs = _build.build("arrhenius_rhs", "arrhenius_rhs_jac",
+                            "arrh_rb23_solve")
         print(f"kernel build: {time.perf_counter() - t0:.2f} s")
         for name, path in libs.items():
             for line in path.with_suffix(".log").read_text().splitlines():
@@ -392,25 +799,38 @@ def main() -> int:
                     bound_by=bound_by)
 
     with phase("3 slice"):
-        kernel_row.update(run_slice("cuda", gen))
+        row, setup, trained = run_slice("cuda", gen)
+        kernel_row.update(row)
+
+    with phase("4 kernels 2-3"):
+        jac_row = check_rhs_jac_kernel(gen)
+        solve_row = check_solve_kernel(setup, gen)
+
+    with phase("5 dense slice"):
+        jac_row.update(run_dense_slice(setup.dataset, gen))
+
+    with phase("6 fused eval"):
+        solve_row.update(run_fused_eval(setup, trained))
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
+    print("library_ms: null for every kernel: no single PyTorch call computes "
+          "the Arrhenius RHS, its fused value+Jacobian, or a whole adaptive "
+          "Rosenbrock23 solve")
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")
     kernels = [{
-        "name": "arrhenius_rhs",
+        "name": name,
         "route": "cuda",
-        "source": "crnn_tpu_torch/ops/csrc/arrhenius_rhs.cu",
-        "replaces": "crnn_tpu/ops/crnn_kernels.py:171",
-        "launches": kernel_row["launches"],
-        "max_abs_err": kernel_row["max_abs_err"],
-        "ms": kernel_row["ms"],
-        "plain_ms": kernel_row["plain_ms"],
-        "bound_ms": kernel_row["bound_ms"],
-        "bound_by": kernel_row["bound_by"],
+        "source": f"crnn_tpu_torch/ops/csrc/{name}.cu",
+        "replaces": replaces,
+        **{k: row[k] for k in keys},
         "library_ms": None,
-        **{k: v for k, v in kernel_row.items() if k not in (
-            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by")},
-    }]
+        **{k: v for k, v in row.items() if k not in keys},
+    } for name, replaces, row in (
+        ("arrhenius_rhs", "crnn_tpu/ops/crnn_kernels.py:171", kernel_row),
+        ("arrhenius_rhs_jac", "crnn_tpu/ops/crnn_kernels.py:185", jac_row),
+        ("arrh_rb23_solve", "crnn_tpu/ops/rb23_solve_kernel.py:85",
+         solve_row))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

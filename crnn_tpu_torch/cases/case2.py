@@ -1,11 +1,14 @@
 """case2: Arrhenius temperature-dependent CRNN (biodiesel, 6 species + T),
 batch-major training epoch (port of crnn_tpu/cases/case2.py).
 
-The path ported is the JAX package's default and benchmarked one: f32,
-Rosenbrock23, ``batch_major=True``, ``jac_mode='lowrank'``, reverse-mode
-gradients, one update per epoch. Each Rosenbrock stage evaluates the RHS
-through the CUDA kernel (``ops/csrc/arrhenius_rhs.cu``) on a CUDA device.
-The data are generated on the chosen device by the port's own solver.
+The path ported is the JAX package's batch-major one: f32, Rosenbrock23,
+``batch_major=True``, reverse-mode gradients, one update per epoch, with
+either W-solve: ``jac_mode='lowrank'`` (the default, rank-nr Woodbury) or
+``jac_mode='dense'`` (full W Gauss-Jordan). On a CUDA device each
+Rosenbrock stage evaluates the RHS through the CUDA kernel
+(``ops/csrc/arrhenius_rhs.cu``), and in dense mode each step's value and
+Jacobian through ``ops/csrc/arrhenius_rhs_jac.cu``. The data are generated
+on the chosen device by the port's own solver.
 
     python -m crnn_tpu_torch.cases.case2 --epochs 3 [--device cpu]
 """
@@ -58,11 +61,11 @@ class Case2Config:
     max_steps: int = 128
     dtype: str = "float32"
     missing_u0: bool = False                # case2_missing u0 tweaks
-    # 'lowrank': rank-nr Woodbury W-solve. 'dense' needs the port of the
-    # dense value+Jacobian kernel (_arrh_rhs_jac_kernel) and raises until then.
+    # 'lowrank': rank-nr Woodbury W-solve; 'dense': full W Gauss-Jordan on
+    # the fused value+Jacobian op
     jac_mode: str = "lowrank"
     device: str = "cuda"
-    # True runs the RHS's plain PyTorch version in place of the CUDA kernel:
+    # True runs the plain PyTorch versions in place of the CUDA kernels:
     # the explicit switch for holding the kernel path against the plain path
     rhs_plain: bool = False
 
@@ -88,10 +91,8 @@ def build(cfg: Case2Config = Case2Config(),
           dataset: Optional[Dataset] = None) -> CaseSetup:
     """The case2 setup on ``cfg.device``. ``dataset`` (e.g. from
     ``convert.dataset_from_jax``) replaces the generated one."""
-    if cfg.jac_mode != "lowrank":
-        raise NotImplementedError(
-            f"jac_mode={cfg.jac_mode!r} needs the dense value+Jacobian kernel "
-            "(crnn_tpu/ops/crnn_kernels.py:_arrh_rhs_jac_kernel), not ported yet")
+    if cfg.jac_mode not in ("lowrank", "dense"):
+        raise ValueError(f"unknown jac_mode: {cfg.jac_mode!r}")
     device = resolve_device(cfg.device)
     dtype = getattr(torch, cfg.dtype)
     # three independent CPU streams from the seed, as JAX splits its key
@@ -119,17 +120,21 @@ def build(cfg: Case2Config = Case2Config(),
             p = prune_case2_params(p, cfg.ns, cfg.nr, cfg.p_cutoff)
         return p2vec_case2(p, cfg.ns, cfg.nr)
 
-    rhs_op = make_arrhenius_ops(cfg.lb, cfg.ub, plain=cfg.rhs_plain)
-    factor_op = make_arrhenius_factor_op(cfg.lb, cfg.ub)
+    rhs_op, rhs_jac_op = make_arrhenius_ops(cfg.lb, cfg.ub,
+                                            plain=cfg.rhs_plain)
+    if cfg.jac_mode == "lowrank":
+        factor_op = make_arrhenius_factor_op(cfg.lb, cfg.ub)
+        fjac = lambda t, y, w_: factor_op(y, w_.w_in, w_.w_b, w_.w_out)
+    else:
+        fjac = lambda t, y, w_: rhs_jac_op(y, w_.w_in, w_.w_b, w_.w_out)
     loss_fn = make_trajectory_loss(yscale=dataset.yscale, i_obs=cfg.i_obs)
 
     def predict_batch(p, u0_b, unroll):
         w = weights_fn(p)
         sol = batch_odesolve_rb23(
-            lambda t, y, w_: rhs_op(y, w_.w_in, w_.w_b, w_.w_out),
-            lambda t, y, w_: factor_op(y, w_.w_in, w_.w_b, w_.w_out),
+            lambda t, y, w_: rhs_op(y, w_.w_in, w_.w_b, w_.w_out), fjac,
             u0_b, 0.0, t1, dataset.ts, args=w, rtol=cfg.rtol, atol=cfg.atol,
-            max_steps=cfg.max_steps, unroll=unroll, jac_mode="lowrank")
+            max_steps=cfg.max_steps, unroll=unroll, jac_mode=cfg.jac_mode)
         return clip(sol.ys[:, :, :cfg.ns], -cfg.ub, cfg.ub)
 
     def make_loss_batch(unroll):

@@ -2,14 +2,15 @@
 (port of crnn_tpu/ops/crnn_kernels.py, Arrhenius part).
 
 ``arrhenius_rhs_batched`` launches the hand-written Hopper kernel
-(``csrc/arrhenius_rhs.cu``, replacing the Pallas ``_arrh_rhs_kernel``) for
-a CUDA tensor and computes the plain version for a CPU tensor. There is no
+(``csrc/arrhenius_rhs.cu``, replacing the Pallas ``_arrh_rhs_kernel``) and
+``arrhenius_rhs_jac_batched`` the dense value+Jacobian kernel
+(``csrc/arrhenius_rhs_jac.cu``, replacing ``_arrh_rhs_jac_kernel``) for a
+CUDA tensor; for a CPU tensor each computes its plain version. There is no
 batch-size threshold: the JAX package's ``min_pallas_batch=4096`` was a TPU
 measurement. On a CUDA tensor the kernel is launched or the call raises.
 
 The low-rank factors (``arrhenius_rhs_jac_factors_reference``) stay plain
-torch, as they are XLA in the JAX package. The dense value+Jacobian kernel
-(``_arrh_rhs_jac_kernel``) is not ported yet.
+torch, as they are XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ _EXP_CAP = 32.0
 _INV_R_KCAL = -1.0 / 1.98720425864083e-3
 _MAX_NS = 32
 _MAX_NR = 32
-_SYMBOLS = {torch.float32: "arrh_rhs_f32", torch.float64: "arrh_rhs_f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SYMBOL = {"arrhenius_rhs": "arrh_rhs", "arrhenius_rhs_jac": "arrh_rhs_jac"}
 
 
 def _min_cap(z, exp_cap):
@@ -44,16 +46,82 @@ def arrhenius_rhs_batched_reference(y, w_in, w_b, w_out, lb, ub,
     return torch.cat([du, torch.zeros_like(du[:, :1])], dim=1)
 
 
-def _kernel_fn(dtype):
-    lib = _build.load("arrhenius_rhs")
-    fn = getattr(lib, _SYMBOLS[dtype])
+def arrhenius_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb, ub,
+                                        exp_cap=_EXP_CAP):
+    """(du, J) with J (B, ns+1, ns+1) (models/jacobian.py closed form):
+    x-block ``(w_out . rates) @ w_in_x^T . dlog``, T-column
+    ``(rates . w_ea) @ w_out^T / (R T^2)``, T-row 0."""
+    b = y.shape[0]
+    ns = w_out.shape[0]
+    x, temp = y[:, :ns], y[:, ns]
+    xc = clip(x, lb, ub)
+    logx = torch.log(xc)
+    z = logx @ w_in[:ns] + (_INV_R_KCAL / temp)[:, None] * w_in[ns][None, :]
+    rates = torch.exp(_min_cap(z + w_b[None, :], exp_cap))
+    du = rates @ w_out.T
+    du = torch.cat([du, torch.zeros_like(du[:, :1])], dim=1)
+    in_range = ((x > lb) & (x < ub)).to(y.dtype)
+    dlog = in_range / xc                                          # (B, ns)
+    j_xx = torch.einsum("br,ir,jr->bij", rates, w_out, w_in[:ns]) \
+        * dlog[:, None, :]
+    dt_feat = (-_INV_R_KCAL) / (temp * temp)                      # 1/(R T^2)
+    j_xt = ((rates * w_in[ns][None, :]) @ w_out.T) * dt_feat[:, None]
+    top = torch.cat([j_xx, j_xt[:, :, None]], dim=2)              # (B, ns, ns+1)
+    bottom = torch.zeros((b, 1, ns + 1), dtype=y.dtype, device=y.device)
+    return du, torch.cat([top, bottom], dim=1)
+
+
+def _kernel_fn(name, dtype, n_out):
+    lib = _build.load(name)
+    fn = getattr(lib, f"{_SYMBOL[name]}_{SUFFIX[dtype]}")
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                       ctypes.c_double, ctypes.c_double, ptr]
+        fn.argtypes = [ptr] * (5 + n_out) + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, ptr]
         fn.restype = ctypes.c_int
     return fn
+
+
+def check_kernel_inputs(who, y, w_in, w_b, w_out, max_ns=_MAX_NS,
+                        max_nr=_MAX_NR):
+    """(ns, nr) after the checks every Arrhenius kernel wrapper makes before
+    it hands pointers to a kernel: a CUDA device, f32 or f64, ns and nr
+    within the kernel's caps, matching shapes, devices and dtypes, and a
+    contiguous ``y``."""
+    if y.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {y.device}")
+    if y.dtype not in SUFFIX:
+        raise TypeError(f"{who}: dtype {y.dtype} is not float32 or float64")
+    ns, nr = w_out.shape
+    if not (1 <= ns <= max_ns and 1 <= nr <= max_nr):
+        raise ValueError(f"{who}: ns={ns}, nr={nr}; the kernel takes "
+                         f"1 <= ns <= {max_ns}, 1 <= nr <= {max_nr}")
+    if (y.dim() != 2 or y.shape[1] != ns + 1
+            or tuple(w_in.shape) != (ns + 1, nr) or tuple(w_b.shape) != (nr,)):
+        raise ValueError(
+            f"{who}: shapes y {tuple(y.shape)}, w_in {tuple(w_in.shape)}, "
+            f"w_b {tuple(w_b.shape)}, w_out ({ns}, {nr})")
+    for t in (w_in, w_b, w_out):
+        if t.device != y.device or t.dtype != y.dtype:
+            raise ValueError(f"{who}: weights must share y's device and dtype")
+    if not y.is_contiguous():
+        raise ValueError(f"{who}: y must be contiguous")
+    return ns, nr
+
+
+def _launch(name, y, w_in, w_b, w_out, outs, lb, ub, exp_cap):
+    ns, nr = w_out.shape
+    weights = (w_in[:ns].contiguous(), w_in[ns].contiguous(),
+               w_b.contiguous(), w_out.contiguous())
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = _kernel_fn(name, y.dtype, len(outs))(
+            y.data_ptr(), *(w.data_ptr() for w in weights),
+            *(o.data_ptr() for o in outs), y.shape[0], ns, nr, float(lb),
+            float(ub), float(exp_cap), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def arrhenius_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
@@ -63,44 +131,34 @@ def arrhenius_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
     if y.device.type == "cpu":
         return arrhenius_rhs_batched_reference(y, w_in, w_b, w_out, lb, ub,
                                                exp_cap)
-    if y.device.type != "cuda":
-        raise ValueError(f"arrhenius_rhs_batched: unsupported device {y.device}")
-    if y.dtype not in _SYMBOLS:
-        raise TypeError(f"arrhenius_rhs_batched: dtype {y.dtype} is not "
-                        "float32 or float64")
-    ns, nr = w_out.shape
-    if not (1 <= ns <= _MAX_NS and 1 <= nr <= _MAX_NR):
-        raise ValueError(f"arrhenius_rhs_batched: ns={ns}, nr={nr}; the kernel "
-                         f"takes 1 <= ns <= {_MAX_NS}, 1 <= nr <= {_MAX_NR}")
-    if (y.dim() != 2 or y.shape[1] != ns + 1
-            or tuple(w_in.shape) != (ns + 1, nr) or tuple(w_b.shape) != (nr,)):
-        raise ValueError(
-            f"arrhenius_rhs_batched: shapes y {tuple(y.shape)}, w_in "
-            f"{tuple(w_in.shape)}, w_b {tuple(w_b.shape)}, w_out ({ns}, {nr})")
-    for t in (w_in, w_b, w_out):
-        if t.device != y.device or t.dtype != y.dtype:
-            raise ValueError("arrhenius_rhs_batched: weights must share y's "
-                             "device and dtype")
-    if not y.is_contiguous():
-        raise ValueError("arrhenius_rhs_batched: y must be contiguous")
-    w_in_x = w_in[:ns].contiguous()
-    w_ea = w_in[ns].contiguous()
-    w_b = w_b.contiguous()
-    w_out = w_out.contiguous()
+    check_kernel_inputs("arrhenius_rhs_batched", y, w_in, w_b, w_out)
     du = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = _kernel_fn(y.dtype)(
-            y.data_ptr(), w_in_x.data_ptr(), w_ea.data_ptr(), w_b.data_ptr(),
-            w_out.data_ptr(), du.data_ptr(), y.shape[0], ns, nr, float(lb),
-            float(ub), float(exp_cap), stream)
-    if rc != 0:
-        raise RuntimeError(f"arrhenius_rhs kernel launch failed: cudaError {rc}")
+    _launch("arrhenius_rhs", y, w_in, w_b, w_out, (du,), lb, ub, exp_cap)
     arrhenius_rhs_batched.launches += 1
     return du
 
 
 arrhenius_rhs_batched.launches = 0
+
+
+def arrhenius_rhs_jac_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
+    """Batched fused Arrhenius (du, J): the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor. ``arrhenius_rhs_jac_batched.launches``
+    counts the kernel launches."""
+    if y.device.type == "cpu":
+        return arrhenius_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb,
+                                                   ub, exp_cap)
+    ns, _ = check_kernel_inputs("arrhenius_rhs_jac_batched", y, w_in, w_b, w_out)
+    du = torch.empty_like(y)
+    jac = torch.empty((y.shape[0], ns + 1, ns + 1), dtype=y.dtype,
+                      device=y.device)
+    _launch("arrhenius_rhs_jac", y, w_in, w_b, w_out, (du, jac), lb, ub,
+            exp_cap)
+    arrhenius_rhs_jac_batched.launches += 1
+    return du, jac
+
+
+arrhenius_rhs_jac_batched.launches = 0
 
 
 def arrhenius_rhs_jac_factors_reference(y, w_in, w_b, w_out, lb, ub,
@@ -137,36 +195,52 @@ def make_arrhenius_factor_op(lb: float, ub: float, exp_cap: float = _EXP_CAP):
     return op
 
 
-class _ArrheniusRHS(torch.autograd.Function):
-    """Kernel forward; backward by autograd of the plain version, as the
-    ``custom_vjp`` at crnn_tpu/ops/crnn_kernels.py:377-386 does."""
+def _kernel_forward_op(kernel, reference):
+    """A ``torch.autograd.Function`` with the kernel forward (the plain
+    version under ``plain``) and a backward by autograd of the plain
+    version, as the ``custom_vjp`` pairs at
+    crnn_tpu/ops/crnn_kernels.py:372-405 do: the JAX package has no backward
+    kernel."""
 
-    @staticmethod
-    def forward(ctx, y, w_in, w_b, w_out, lb, ub, exp_cap, plain):
-        ctx.save_for_backward(y, w_in, w_b, w_out)
-        ctx.consts = (lb, ub, exp_cap)
-        fn = arrhenius_rhs_batched_reference if plain else arrhenius_rhs_batched
-        return fn(y, w_in, w_b, w_out, lb, ub, exp_cap)
+    class Op(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y, w_in, w_b, w_out, lb, ub, exp_cap, plain):
+            ctx.save_for_backward(y, w_in, w_b, w_out)
+            ctx.consts = (lb, ub, exp_cap)
+            fn = reference if plain else kernel
+            return fn(y, w_in, w_b, w_out, lb, ub, exp_cap)
 
-    @staticmethod
-    def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = arrhenius_rhs_batched_reference(*inputs, *ctx.consts)
-            grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
-        return (*grads, None, None, None, None)
+        @staticmethod
+        def backward(ctx, *g):
+            inputs = [t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = reference(*inputs, *ctx.consts)
+                grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
+            return (*grads, None, None, None, None)
+
+    return Op
+
+
+_ArrheniusRHS = _kernel_forward_op(arrhenius_rhs_batched,
+                                   arrhenius_rhs_batched_reference)
+_ArrheniusRHSJac = _kernel_forward_op(arrhenius_rhs_jac_batched,
+                                      arrhenius_rhs_jac_batched_reference)
 
 
 def make_arrhenius_ops(lb: float, ub: float, exp_cap: float = _EXP_CAP,
                        plain: bool = False):
-    """Differentiable batched Arrhenius RHS op ``(y, w_in, w_b, w_out) -> du``
-    for the batch-major solve: kernel forward, plain-version backward.
-    ``plain=True`` runs the plain version forward too, on any device (the
-    explicit switch that chip_smoke.py uses to hold the kernel path against
-    the plain path). The dense (du, J) op waits for the port of
-    ``_arrh_rhs_jac_kernel``."""
+    """Differentiable batched Arrhenius ``(rhs_op, rhs_jac_op)`` pair for the
+    batch-major solve, ``(y, w_in, w_b, w_out) -> du`` and ``-> (du, J)``:
+    kernel forward, plain-version backward. ``plain=True`` runs the plain
+    version forward too, on any device (the explicit switch that
+    chip_smoke.py uses to hold the kernel path against the plain path)."""
 
     def rhs_op(y, w_in, w_b, w_out):
         return _ArrheniusRHS.apply(y, w_in, w_b, w_out, lb, ub, exp_cap, plain)
 
-    return rhs_op
+    def rhs_jac_op(y, w_in, w_b, w_out):
+        return _ArrheniusRHSJac.apply(y, w_in, w_b, w_out, lb, ub, exp_cap,
+                                      plain)
+
+    return rhs_op, rhs_jac_op

@@ -1,16 +1,19 @@
 """Where the time of one crnn_tpu_torch case2 training epoch goes, on one
 CUDA card.
 
-    python3 scripts/profile_torch_case2.py [--epochs 3] [--out PATH]
+    python3 scripts/profile_torch_case2.py [--epochs 3] [--jac-mode lowrank|dense] [--out PATH]
 
 At the shipped configuration (30 experiments, 50 save points,
-max_steps 128, f32, lowrank) it times, for the kernel path and the plain
-path (``rhs_plain=True``) in turns (kernel, plain, plain, kernel):
+max_steps 128, f32; the lowrank W-solve as shipped, or the dense one with
+``--jac-mode dense``) it times, for the kernel path and the plain path
+(``rhs_plain=True``) in turns (kernel, plain, plain, kernel):
 
 - the epoch (host clock around ``Trainer.epoch`` ending in a synchronize),
   and its two parts: the gradient (``value_and_grad`` through the
   checkpointed 128-step scan) and the evaluation pass (early-exit solve,
-  with its count of kernel launches: two per step plus two);
+  with its count of RHS kernel launches: two per step plus two in lowrank
+  mode, two per step plus one in dense mode, where each step also launches
+  the value+Jacobian kernel once);
 - the RHS op alone at the eval shape, back to back and with one host sync
   per call as in the early-exit solve;
 - one epoch under ``torch.profiler``: CUDA kernels launched, their summed
@@ -18,7 +21,7 @@ path (``rhs_plain=True``) in turns (kernel, plain, plain, kernel):
   kernel intervals over first start to last end), and the kernels that take
   the most device time.
 
-Writes one JSON file (default ``runs_torch/profile_torch_case2.json``) and
+Writes one JSON file (default ``runs_torch/profile_torch_case2[_dense].json``) and
 prints a summary, with the card's name and power limit. ``--device cpu``
 rehearses the script without a card; it then reports no device numbers.
 """
@@ -41,7 +44,7 @@ sys.path.insert(0, str(ROOT))
 
 from crnn_tpu_torch.cases.case2 import Case2Config, build  # noqa: E402
 from crnn_tpu_torch.ops.crnn_kernels import (  # noqa: E402
-    arrhenius_rhs_batched, make_arrhenius_ops)
+    arrhenius_rhs_batched, arrhenius_rhs_jac_batched, make_arrhenius_ops)
 
 
 def _sync(device):
@@ -64,7 +67,7 @@ def _rhs_loop_ms(setup, plain, device, sync_each, n=200):
     cfg = Case2Config()
     w = setup.weights_fn(setup.init_params)
     y = setup.dataset.u0.contiguous()
-    op = make_arrhenius_ops(cfg.lb, cfg.ub, plain=plain)
+    op, _ = make_arrhenius_ops(cfg.lb, cfg.ub, plain=plain)
     with torch.no_grad():
         for _ in range(10):
             op(y, w.w_in, w.w_b, w.w_out)
@@ -125,9 +128,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--out", default=str(ROOT / "runs_torch"
-                                         / "profile_torch_case2.json"))
+    ap.add_argument("--jac-mode", default="lowrank",
+                    choices=("lowrank", "dense"))
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    suffix = "" if args.jac_mode == "lowrank" else f"_{args.jac_mode}"
+    out = Path(args.out or ROOT / "runs_torch"
+               / f"profile_torch_case2{suffix}.json")
     device = torch.device(args.device)
     card = "not measured (no card)"
     if device.type == "cuda":
@@ -136,9 +143,9 @@ def main(argv=None):
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0]
 
-    kernel = build(Case2Config(device=args.device))
-    plain = build(Case2Config(device=args.device, rhs_plain=True),
-                  dataset=kernel.dataset)
+    kernel = build(Case2Config(device=args.device, jac_mode=args.jac_mode))
+    plain = build(Case2Config(device=args.device, jac_mode=args.jac_mode,
+                              rhs_plain=True), dataset=kernel.dataset)
     perm = torch.randperm(20, generator=torch.Generator().manual_seed(0))
     results = {"kernel": defaultdict(list), "plain": defaultdict(list)}
     for name in ("kernel", "plain", "plain", "kernel"):
@@ -148,10 +155,13 @@ def main(argv=None):
         tr.epoch(tr.init(p0), perm)       # warm-up
         for _ in range(args.epochs):
             arrhenius_rhs_batched.launches = 0
+            arrhenius_rhs_jac_batched.launches = 0
             t, _ = _timed(lambda: tr.epoch(tr.init(p0), perm), device)
             results[name]["epoch_s"].append(t)
             results[name]["arrhenius_launches"].append(
                 arrhenius_rhs_batched.launches)
+            results[name]["arrhenius_jac_launches"].append(
+                arrhenius_rhs_jac_batched.launches)
             t, _ = _timed(lambda: tr.value_and_grad(p0, perm.to(device)),
                           device)
             results[name]["grad_s"].append(t)
@@ -169,7 +179,7 @@ def main(argv=None):
                     setup, name == "plain", device, sync_each))
     report = {"card": card, "torch": torch.__version__, "config":
               "case2 shipped: 20+10 experiments, 50 save points, "
-              "max_steps 128, f32, lowrank", "paths": {}}
+              f"max_steps 128, f32, {args.jac_mode}", "paths": {}}
     for name in ("kernel", "plain"):
         r = results[name]
         setup = kernel if name == "kernel" else plain
@@ -180,7 +190,6 @@ def main(argv=None):
             "eval_s_median": statistics.median(r["eval_s"]),
             "profile": _profile_epoch(setup, kernel.init_params, perm, device),
         }
-    out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"card: {card}")
@@ -188,7 +197,8 @@ def main(argv=None):
         prof = r["profile"]
         print(f"{name}: epoch_s median {r['epoch_s_median']:.4f} "
               f"(grad {r['grad_s_median']:.4f}, eval {r['eval_s_median']:.4f}); "
-              f"arrhenius launches/epoch {r['arrhenius_launches'][-1]}; "
+              f"arrhenius launches/epoch {r['arrhenius_launches'][-1]} "
+              f"(value+Jacobian {r['arrhenius_jac_launches'][-1]}); "
               f"profiled epoch: {prof['kernels']} kernels, device "
               f"{prof['device_ms']} ms, busy share {prof['busy_share']}")
         print(f"    eval launches {r['eval_arrhenius_launches']}; rhs op ms/call "

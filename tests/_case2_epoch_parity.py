@@ -1,5 +1,5 @@
 """Helper of tests/test_torch_case2_epoch*.py: one whole case2 batch-mode
-training epoch, crnn_tpu_torch against
+training epoch (either W-solve, ``jac_mode``), crnn_tpu_torch against
 crnn_tpu on the same dataset, params, optimizer state and permutation,
 all carried across through crnn_tpu_torch.convert.
 
@@ -29,9 +29,9 @@ def _adam_state(opt_state):
     return opt_state[1][1][0]
 
 
-def check_case2_epoch(dtype: str, rtol: float):
+def check_case2_epoch(dtype: str, rtol: float, jac_mode: str = "lowrank"):
     jcfg = jcase2.Case2Config(n_exp_train=N_TRAIN, n_exp_test=N_TEST,
-                              dtype=dtype, max_steps=128)
+                              dtype=dtype, max_steps=128, jac_mode=jac_mode)
     jsetup = jcase2.build(jcfg)
     jtrainer = jsetup.trainer
     epoch = jtrainer.epoch_fn()
@@ -49,8 +49,8 @@ def check_case2_epoch(dtype: str, rtol: float):
     dataset = convert.dataset_from_jax(*(np.asarray(a) for a in (
         ds.u0, ds.ys, ds.ys_clean, ds.ts, ds.yscale)), device="cpu")
     setup = tcase2.build(tcase2.Case2Config(
-        n_exp_train=N_TRAIN, n_exp_test=N_TEST, dtype=dtype, device="cpu"),
-        dataset=dataset)
+        n_exp_train=N_TRAIN, n_exp_test=N_TEST, dtype=dtype, device="cpu",
+        jac_mode=jac_mode), dataset=dataset)
     adam = _adam_state(state1.opt_state)
     trainer = setup.trainer
     state = TrainState(

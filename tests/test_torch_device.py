@@ -43,8 +43,16 @@ def test_cuda_default_raises_without_a_card(no_cuda, entry):
 
 
 def test_dense_jac_mode_waits_for_its_kernel():
-    with pytest.raises(NotImplementedError, match="_arrh_rhs_jac_kernel"):
-        case2.build(case2.Case2Config(device="cpu", jac_mode="dense"))
+    """The dense value+Jacobian kernel is ported: jac_mode='dense' builds and
+    trains on the CPU (its plain version), and an unknown mode raises."""
+    cfg = case2.Case2Config(device="cpu", jac_mode="dense", n_exp_train=2,
+                            n_exp_test=1, datasize=8, max_steps=16)
+    setup = case2.build(cfg)
+    state, m = setup.trainer.epoch(setup.trainer.init(setup.init_params))
+    assert state.epoch == 1
+    assert bool(torch.isfinite(m.loss_exp).all() & torch.isfinite(m.grad_norm))
+    with pytest.raises(ValueError, match="jac_mode"):
+        case2.build(case2.Case2Config(device="cpu", jac_mode="banded"))
 
 
 def test_case2_cli_on_cpu_writes_metrics(tmp_path):

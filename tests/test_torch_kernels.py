@@ -1,11 +1,12 @@
 """crnn_tpu_torch/ops/crnn_kernels.py against the JAX package.
 
-On the CPU the wrapper computes the plain version; it is held against JAX's
-XLA reference and against the Pallas kernel in interpret mode (as
-tests/test_pallas_kernels.py runs it): rtol/atol 1e-12 in f64 (both sides
-are the same arithmetic up to summation order) and 2e-6 in f32 (the
-tolerance the JAX package holds its own kernel to). The CUDA kernel itself
-is tested on the card by tests/test_torch_gpu.py.
+On the CPU each wrapper (the RHS and the dense value+Jacobian) computes its
+plain version; it is held against JAX's XLA reference and against the
+Pallas kernel in interpret mode (as tests/test_pallas_kernels.py runs it):
+rtol/atol 1e-12 in f64 (both sides are the same arithmetic up to summation
+order) and 2e-6 in f32 (the tolerance the JAX package holds its own kernels
+to). The CUDA kernels themselves are tested on the card by
+tests/test_torch_gpu.py.
 """
 
 import jax
@@ -103,10 +104,77 @@ def test_autograd_function_matches_jax_vjp():
                      *map(jnp.asarray, (y, w_in, w_b, w_out)))
     want = vjp(jnp.asarray(g))
     inputs = [t.requires_grad_(True) for t in _t(y, w_in, w_b, w_out)]
-    rhs_op = tk.make_arrhenius_ops(LB, UB)
+    rhs_op, _ = tk.make_arrhenius_ops(LB, UB)
     out = rhs_op(*inputs)
     got = torch.autograd.grad(out, inputs, torch.from_numpy(g))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
                                    atol=1e-12)
     assert torch.autograd.gradcheck(rhs_op, inputs)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("edges", [False, True])
+def test_plain_rhs_jac_matches_jax_reference_and_interpret_kernel(dtype,
+                                                                  edges):
+    arrays = _inputs(dtype=dtype, edges=edges, seed=6)
+    ref = jk.arrhenius_rhs_jac_batched_reference(*map(jnp.asarray, arrays),
+                                                 LB, UB)
+    pallas = jk.arrhenius_rhs_jac_batched(*map(jnp.asarray, arrays), LB, UB,
+                                          force="interpret")
+    got = tk.arrhenius_rhs_jac_batched(*_t(*arrays), LB, UB)
+    tol = TOL[dtype]
+    for g, r, k in zip(got, ref, pallas):
+        assert g.dtype == torch.from_numpy(arrays[0]).dtype
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=tol, atol=tol)
+        np.testing.assert_allclose(g.numpy(), np.asarray(k), rtol=tol, atol=tol)
+
+
+def test_plain_rhs_jac_propagates_nan_like_jax():
+    y, w_in, w_b, w_out = _inputs(seed=8)
+    y[0, 0], y[1, 6], y[2, 1], y[3, 2] = np.nan, np.nan, np.inf, -np.inf
+    y[4, 6] = 0.0
+    want = jk.arrhenius_rhs_jac_batched_reference(
+        *map(jnp.asarray, (y, w_in, w_b, w_out)), LB, UB)
+    got = tk.arrhenius_rhs_jac_batched(*_t(y, w_in, w_b, w_out), LB, UB)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.isnan(g.numpy()), np.isnan(np.asarray(w)))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_cpu_jac_wrapper_uses_plain_version_without_launching():
+    before = tk.arrhenius_rhs_jac_batched.launches
+    args = _t(*_inputs())
+    got = tk.arrhenius_rhs_jac_batched(*args, LB, UB)
+    want = tk.arrhenius_rhs_jac_batched_reference(*args, LB, UB)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tk.arrhenius_rhs_jac_batched.launches == before
+    meta = [t.to("meta") for t in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.arrhenius_rhs_jac_batched(*meta, LB, UB)
+
+
+def test_rhs_jac_op_gradients_match_jax_vjp():
+    y, w_in, w_b, w_out = _inputs(b=8, seed=9)
+    rng = np.random.default_rng(10)
+    g_du = rng.normal(size=y.shape)
+    g_jac = rng.normal(size=(y.shape[0], y.shape[1], y.shape[1]))
+    _, vjp = jax.vjp(
+        lambda *a: jk.arrhenius_rhs_jac_batched_reference(*a, LB, UB),
+        *map(jnp.asarray, (y, w_in, w_b, w_out)))
+    want = vjp((jnp.asarray(g_du), jnp.asarray(g_jac)))
+    inputs = [t.requires_grad_(True) for t in _t(y, w_in, w_b, w_out)]
+    _, rhs_jac_op = tk.make_arrhenius_ops(LB, UB)
+    du, jac = rhs_jac_op(*inputs)
+    got = torch.autograd.grad((du, jac), inputs,
+                              (torch.from_numpy(g_du), torch.from_numpy(g_jac)))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
+                                   atol=1e-12)
+    # a cotangent on J alone (du unused) is materialised as zeros for du
+    (g_w,) = torch.autograd.grad(rhs_jac_op(*inputs)[1].sum(), inputs[1])
+    (g_ref,) = torch.autograd.grad(
+        tk.arrhenius_rhs_jac_batched_reference(*inputs, LB, UB)[1].sum(),
+        inputs[1])
+    torch.testing.assert_close(g_w, g_ref, rtol=1e-12, atol=1e-12)

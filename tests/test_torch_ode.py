@@ -95,14 +95,12 @@ def _jax_solve(p, u0, saveat, jac_mode, unroll, max_steps):
 
 def _torch_solve(p, u0, saveat, jac_mode, unroll, max_steps):
     w = t_p2vec(p, NS, NR)
-    rhs_op = tk.make_arrhenius_ops(LB, UB)
+    rhs_op, rhs_jac_op = tk.make_arrhenius_ops(LB, UB)
     factors = tk.make_arrhenius_factor_op(LB, UB)
     if jac_mode == "lowrank":
         fjac = lambda t, y, w_: factors(y, w_.w_in, w_.w_b, w_.w_out)
     else:
-        def fjac(t, y, w_):   # dense J = U @ V of the exact rank-nr factors
-            du, u_fac, v_fac = factors(y, w_.w_in, w_.w_b, w_.w_out)
-            return du, torch.einsum("iq,bqj->bij", u_fac, v_fac)
+        fjac = lambda t, y, w_: rhs_jac_op(y, w_.w_in, w_.w_b, w_.w_out)
     return tbs.batch_odesolve_rb23(
         lambda t, y, w_: rhs_op(y, w_.w_in, w_.w_b, w_.w_out), fjac,
         torch.from_numpy(u0), 0.0, T1, torch.from_numpy(saveat), args=w,
