@@ -40,7 +40,25 @@ Phases, each printed with the seconds it took:
    the 30 experiments, held against each other at 5e-4 of each state
    component's largest value, then timed in 12
    interleaved rounds of 10 calls each (median), as bench.py times its
-   eval pair.
+   eval pair;
+7. kernels 4-5: the isothermal RHS and its value+Jacobian against their
+   plain versions at B in {20, 30, 4099, 65536}, at case1's shapes (ns=5,
+   nr=4) and robertson's (ns=3, nr=6), f32 and f64, ub = 10 and ub = inf,
+   on the edge inputs of phase 2 and at the exp cap: NaN and inf positions
+   exact, finite values within 2e-6 (f32) or 1e-12 (f64) of each output
+   component's largest value; then device and eager times against the
+   plain versions';
+8. case1: 3 guarded epochs of Case1Config() (f32, Tsit5) through run_case,
+   counters set to 0 just before and read just after (kernel 4 launches;
+   finite, non-increasing training loss); the kernel path against the
+   plain path on the same params and perm: f32 losses at rtol 1e-4, f32 ys
+   within 5e-4 of each species' largest value, and a whole f64 epoch
+   (loss, grad, eval losses, params) at rtol 1e-9;
+9. robertson: 2 guarded epochs of RobertsonConfig() (f64, Rosenbrock23,
+   stochastic horizons) through run_case, counters set to 0 just before
+   and read just after (kernel 4 and kernel 5 launches); the kernel path
+   against the plain path on the same params, perm and masks over a whole
+   epoch (loss, grad, eval losses, params) at rtol 1e-9.
 
 The last lines are the card (nvidia-smi), one JSON line with every
 kernel's numbers, and the result line
@@ -704,6 +722,292 @@ def run_fused_eval(setup, params) -> dict:
     return {"launches": launches, **pair}
 
 
+def crnn_inputs(batch, dtype, gen, shape, edges):
+    """Isothermal RHS inputs on the card at ``shape``: 'case1' (ns=5, nr=4,
+    weights from the case1 init, lb 1e-5) or 'robertson' (ns=3, nr=6,
+    weights from the robertson init, lb 1e-8). ``edges``: False, True (the
+    first rows carry phase 2's edge values) or 'exp-cap' (edge rows and a
+    bias of +60 that lifts every rate above exp(32), w_out of one sign so
+    that du and J are sums without cancellation)."""
+    from crnn_tpu_torch.transforms.p2vec import (init_params_case1,
+                                                 init_params_robertson,
+                                                 p2vec_case1, p2vec_robertson)
+
+    if shape == "case1":
+        ns, nr, lb = 5, 4, 1e-5
+        w = p2vec_case1(init_params_case1(gen, ns, nr, dtype=dtype,
+                                          device="cpu"), ns, nr)
+        y = torch.rand((batch, ns), generator=gen, dtype=dtype) * 1.2
+    else:
+        ns, nr, lb = 3, 6, 1e-8
+        w = p2vec_robertson(init_params_robertson(gen, ns, nr, dtype=dtype,
+                                                  device="cpu"), ns, nr)
+        y = torch.rand((batch, ns), generator=gen, dtype=dtype) * 2.0 + 0.5
+        y[:, 1] = y[:, 1] * 1e-4
+    w_b, w_out = w.w_b, w.w_out
+    if edges:
+        lb_t = torch.tensor(lb, dtype=dtype)
+        for row, (col, val) in enumerate([
+                (0, 1e-9), (0, lb_t), (1, 50.0), (2, 0.0), (0, math.nan),
+                (1, math.inf), (2, -math.inf), (1, -1.0), (0, 10.0)]):
+            y[row, col] = val
+    if edges == "exp-cap":
+        w_b, w_out = w_b + 60.0, w_out.abs()
+    dev = torch.device("cuda")
+    return [t.to(dev).contiguous() for t in (y, w.w_in, w_b, w_out)], lb
+
+
+def compare_components(out, ref, tol):
+    """(ok, max_abs_err over finite entries): NaN and inf positions must
+    match exactly, finite values within ``tol`` of each output component's
+    largest finite |value| over the lanes."""
+    nan_o, nan_r = torch.isnan(out), torch.isnan(ref)
+    fin_r = torch.isfinite(ref)
+    if not (torch.equal(nan_o, nan_r) and torch.equal(torch.isfinite(out), fin_r)
+            and torch.equal(out[~fin_r & ~nan_r], ref[~fin_r & ~nan_r])):
+        return False, math.inf
+    scale = torch.where(fin_r, ref.abs(), torch.zeros_like(ref)).amax(dim=0)
+    diff = torch.where(fin_r, (out - ref).abs(), torch.zeros_like(ref))
+    return bool((diff <= tol * scale).all()), float(diff.max())
+
+
+def crnn_bound_ms(batch, ns, nr, dtype, jac):
+    """(bound_ms, bound_by) of kernel 4 (``jac=False``) or kernel 5: y and
+    the weights read once, du (and J) written once, against the flops."""
+    itemsize = torch.finfo(dtype).bits // 8
+    n_out = batch * ns * (ns + 1 if jac else 1)
+    n_bytes = itemsize * (batch * ns + 2 * ns * nr + nr + n_out)
+    # per lane: ns logs, the (ns x nr) dot, bias, cap, nr exps, the (nr x ns)
+    # dot; with J: ns divisions for dlog, rates * w_out (ns*nr) and the
+    # (ns x ns) block of 2*nr + 1 each
+    flops = ns + 2 * ns * nr + 3 * nr + 2 * ns * nr
+    if jac:
+        flops += ns + ns * nr + ns * ns * (2 * nr + 1)
+    return _bound(n_bytes, batch * flops, dtype)
+
+
+def check_crnn_kernels(gen):
+    """Phase 7: kernels 4-5 against their plain versions, then timed.
+    Returns their rows' numbers: kernel 4 at case1's training shape (f32,
+    B=20), kernel 5 at robertson's (f64, B=20)."""
+    from crnn_tpu_torch.ops.crnn_kernels import (
+        crnn_rhs_batched, crnn_rhs_batched_reference, crnn_rhs_jac_batched,
+        crnn_rhs_jac_batched_reference)
+
+    tol = {torch.float32: 2e-6, torch.float64: 1e-12}
+    rhs_row, jac_row = {}, {}
+    row_of = {("crnn_rhs", "case1"): rhs_row,
+              ("crnn_rhs_jac", "robertson"): jac_row}
+    for shape in ("case1", "robertson"):
+        for dtype in (torch.float32, torch.float64):
+            for batch in (20, 30, 4099, 65536):
+                for edges in (False, True, "exp-cap"):
+                    args, lb = crnn_inputs(batch, dtype, gen, shape, edges)
+                    for ub in (10.0, math.inf):
+                        outs = (crnn_rhs_batched(*args, lb, ub),
+                                *crnn_rhs_jac_batched(*args, lb, ub))
+                        refs = (crnn_rhs_batched_reference(*args, lb, ub),
+                                *crnn_rhs_jac_batched_reference(*args, lb, ub))
+                        torch.cuda.synchronize()
+                        (ok4, e4), (ok5a, e5a), (ok5b, e5b) = (
+                            compare_components(o, r, tol[dtype])
+                            for o, r in zip(outs, refs))
+                        if not (ok4 and ok5a and ok5b):
+                            fail(f"crnn kernels disagree with their plain "
+                                 f"versions: {shape} B={batch} {dtype} "
+                                 f"edges={edges} ub={ub}: du {e4:.3e}, "
+                                 f"(du, J) {e5a:.3e} {e5b:.3e}")
+                        if batch == 20 and not edges and ub == 10.0:
+                            if (shape, dtype) == ("case1", torch.float32):
+                                rhs_row["max_abs_err"] = e4
+                            if (shape, dtype) == ("robertson", torch.float64):
+                                jac_row["max_abs_err"] = max(e5a, e5b)
+                print(f"  crnn_rhs/crnn_rhs_jac {shape} {str(dtype)[6:]} "
+                      f"B={batch}: plain, edges, exp cap; ub 10 and inf: ok")
+    for shape, dtype in (("case1", torch.float32),
+                         ("robertson", torch.float64)):
+        ub = 10.0 if shape == "case1" else math.inf
+        for batch in (20, 30, 4099, 65536):
+            (y, w_in, w_b, w_out), lb = crnn_inputs(batch, dtype, gen, shape,
+                                                    False)
+            ns, nr = w_out.shape
+            fns = {"crnn_rhs": (crnn_rhs_batched, crnn_rhs_batched_reference),
+                   "crnn_rhs_jac": (crnn_rhs_jac_batched,
+                                    crnn_rhs_jac_batched_reference)}
+            for name, (kernel, plain) in fns.items():
+                times = {
+                    "kernel_device": device_ms(
+                        lambda: kernel(y, w_in, w_b, w_out, lb, ub)),
+                    "plain_device": device_ms(
+                        lambda: plain(y, w_in, w_b, w_out, lb, ub)),
+                    "kernel_eager": eager_ms(
+                        lambda: kernel(y, w_in, w_b, w_out, lb, ub)),
+                    "plain_eager": eager_ms(
+                        lambda: plain(y, w_in, w_b, w_out, lb, ub)),
+                }
+                jac = name == "crnn_rhs_jac"
+                bound, bound_by = crnn_bound_ms(batch, ns, nr, dtype, jac)
+                print(f"  {name} {shape} B={batch} {str(dtype)[6:]} ms/call: "
+                      + ", ".join(f"{k}={v:.5f}" for k, v in times.items())
+                      + f", bound={bound:.3e} ({bound_by})")
+                row = row_of.get((name, shape))
+                if batch == 20 and row is not None:
+                    row.update(
+                        ms=times["kernel_device"],
+                        plain_ms=times["plain_device"],
+                        ms_eager=times["kernel_eager"],
+                        plain_ms_eager=times["plain_eager"], bound_ms=bound,
+                        bound_by=bound_by, timed_at=f"{shape} B=20 "
+                        f"{str(dtype)[6:]}")
+    return rhs_row, jac_row
+
+
+def train_case(module, cfg, n_epoch, counters):
+    """``n_epoch`` guarded epochs of ``cfg`` through run_case on the card,
+    with every counter of ``counters`` set to 0 just before and read just
+    after; fails on non-finite metrics, a discarded epoch, a missing
+    metrics line or a kernel launched 0 times. Returns (setup, state,
+    history, launches)."""
+    from crnn_tpu_torch.cases.base import run_case
+
+    t0 = time.perf_counter()
+    setup = module.build(cfg)
+    torch.cuda.synchronize()
+    print(f"  build (truth on the card): {time.perf_counter() - t0:.2f} s")
+    for c in counters:
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        state, hist = run_case(setup, n_epoch, out_dir=out_dir, log_every=1)
+        n_lines = len((Path(out_dir) / setup.name / "metrics.jsonl")
+                      .read_text().splitlines())
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    print(f"  {setup.name}: epochs_s={hist['epoch_s']}; launches "
+          + ", ".join(f"{c.__name__}={n} ({n / n_epoch:.0f}/epoch)"
+                      for c, n in zip(counters, launches)))
+    if n_lines != n_epoch:
+        fail(f"{setup.name}: metrics.jsonl has {n_lines} lines")
+    for k in ("loss_train", "loss_val", "grad_norm"):
+        if not all(math.isfinite(v) for v in hist[k]):
+            fail(f"{setup.name}: non-finite {k}: {hist[k]}")
+    if hist["n_skipped"]:
+        fail(f"{setup.name}: {hist['n_skipped']} epochs discarded")
+    if not hist["loss_train"][-1] <= hist["loss_train"][0]:
+        fail(f"{setup.name}: the training loss rose: {hist['loss_train']}")
+    if min(launches) == 0:
+        fail(f"{setup.name}: a kernel of its path launched 0 times: "
+             f"{launches}")
+    return setup, state, hist, launches
+
+
+def compare_f64_epochs(module, cfg_cls, dataset, params, perm, masks, label,
+                       rtol=1e-9, **kw):
+    """A whole f64 epoch on the kernel path against the plain path from the
+    same params, perm and masks: loss, grad, eval losses and updated params
+    at ``rtol`` (plus rtol of the largest entry for entries near 0). Returns
+    the two epochs' seconds."""
+    results = []
+    for plain in (False, True):
+        s = module.build(cfg_cls(dtype="float64", rhs_plain=plain, **kw),
+                         dataset=dataset)
+        loss, g = s.trainer.value_and_grad(params, perm, masks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = s.trainer.epoch(s.trainer.init(params), perm, masks)
+        torch.cuda.synchronize()
+        results.append((loss, g, m, state.params, time.perf_counter() - t0))
+    (lk, gk, mk, pk, tk), (lp, gp, mp, pp, tp) = results
+    print(f"  {label} f64 epoch s: kernel path {tk:.3f}, plain path {tp:.3f}")
+    for name, a, b in (("loss", lk, lp), ("grad", gk, gp),
+                       ("eval losses", mk.loss_exp, mp.loss_exp),
+                       ("params", pk, pp)):
+        rel = float(((a - b).abs() / b.abs().max()).max())
+        ok = bool(torch.isfinite(a).all()) and bool(
+            ((a - b).abs() <= rtol * (b.abs() + b.abs().max())).all())
+        print(f"  kernel vs plain {label} f64 {name}: max rel err {rel:.3e} "
+              f"ok={ok}")
+        if not ok:
+            fail(f"{label}: kernel path f64 {name} disagrees with the plain "
+                 "path")
+    return tk, tp
+
+
+def run_case1(gen) -> dict:
+    """Phase 8: case1 as shipped on the card, its kernel-4 launches, and
+    the kernel path against the plain path."""
+    from crnn_tpu_torch.cases import case1
+    from crnn_tpu_torch.ode.solve import odesolve
+    from crnn_tpu_torch.ode.tsit5 import Tsit5
+    from crnn_tpu_torch.models.crnn import make_crnn_rhs
+    from crnn_tpu_torch.ops.crnn_kernels import crnn_rhs_batched
+
+    cfg = case1.Case1Config()
+    setup, _, hist, (launches,) = train_case(case1, cfg, 3,
+                                             (crnn_rhs_batched,))
+    ds = setup.dataset
+    if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
+        fail("case1: truth solve failed or produced non-finite data")
+    plain = case1.build(case1.Case1Config(rhs_plain=True), dataset=ds)
+    p0 = setup.init_params
+    perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
+    f32 = [forward_losses(s, p0, perm, cfg) for s in (setup, plain)]
+    compare_epoch("case1 f32 train loss", f32[0][0], f32[1][0])
+    compare_epoch("case1 f32 eval losses", f32[0][1], f32[1][1])
+    ys = []
+    for plain_rhs in (False, True):
+        with torch.no_grad():
+            ys.append(odesolve(
+                make_crnn_rhs(cfg.lb, cfg.ub, plain=plain_rhs), Tsit5(),
+                ds.u0, 0.0, cfg.datasize * cfg.tstep, ds.ts,
+                args=setup.weights_fn(p0), rtol=cfg.rtol, atol=cfg.atol,
+                max_steps=cfg.max_steps, unroll="while").ys)
+    rel = rel_err_components(*ys)
+    print(f"  case1 f32 ys kernel vs plain: max err {rel:.3e} of each "
+          f"species' largest value")
+    if not rel < 5e-4:
+        fail("case1: kernel path ys disagree with the plain path")
+    _, g_a = plain.trainer.value_and_grad(p0, perm)
+    _, g_b = plain.trainer.value_and_grad(torch.nextafter(p0, p0 + math.inf),
+                                          perm)
+    print(f"  case1 f32 conditioning probe (plain path, params moved by one "
+          f"ulp): grad moves by "
+          f"{float((g_a - g_b).abs().max() / g_a.abs().max()):.3e} of its "
+          f"largest entry")
+    ds64 = ds._replace(**{k: getattr(ds, k).double() for k in (
+        "u0", "ys", "ys_clean", "ts", "yscale")})
+    masks = torch.ones((cfg.n_exp_train, cfg.datasize), dtype=torch.float64)
+    compare_f64_epochs(case1, case1.Case1Config, ds64, p0.double(), perm,
+                       masks, "case1")
+    return {"launches": launches, "launches_per_epoch": launches / 3,
+            "case1_epoch_s": hist["epoch_s"]}
+
+
+def run_robertson(gen) -> dict:
+    """Phase 9: robertson as shipped on the card, its kernel-4 and kernel-5
+    launches, and the kernel path against the plain path in f64."""
+    from crnn_tpu_torch.cases import robertson
+    from crnn_tpu_torch.ops.crnn_kernels import (crnn_rhs_batched,
+                                                 crnn_rhs_jac_batched)
+
+    cfg = robertson.RobertsonConfig()
+    setup, _, hist, (n_rhs, n_jac) = train_case(
+        robertson, cfg, 2, (crnn_rhs_batched, crnn_rhs_jac_batched))
+    ds = setup.dataset
+    print(f"  robertson truth: success {int(ds.success.sum())}/{cfg.n_exp}, "
+          f"yscale {ds.yscale.tolist()}")
+    if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
+        fail("robertson: truth solve failed or produced non-finite data")
+    trainer = setup.trainer
+    perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
+    masks = trainer.sample_masks(gen, cfg.n_exp_train, torch.float64)
+    tk, tp = compare_f64_epochs(robertson, robertson.RobertsonConfig, ds,
+                                setup.init_params, perm, masks, "robertson")
+    return {"launches": n_jac, "launches_per_epoch": n_jac / 2,
+            "rhs_launches": n_rhs, "robertson_epoch_s": hist["epoch_s"],
+            "robertson_f64_epoch_kernel_s": tk,
+            "robertson_f64_epoch_plain_s": tp}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -730,7 +1034,7 @@ def main() -> int:
               f"device {torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
         libs = _build.build("arrhenius_rhs", "arrhenius_rhs_jac",
-                            "arrh_rb23_solve")
+                            "arrh_rb23_solve", "crnn_rhs", "crnn_rhs_jac")
         print(f"kernel build: {time.perf_counter() - t0:.2f} s")
         for name, path in libs.items():
             for line in path.with_suffix(".log").read_text().splitlines():
@@ -812,10 +1116,21 @@ def main() -> int:
     with phase("6 fused eval"):
         solve_row.update(run_fused_eval(setup, trained))
 
+    with phase("7 kernels 4-5"):
+        iso_row, iso_jac_row = check_crnn_kernels(gen)
+
+    with phase("8 case1"):
+        iso_row.update(run_case1(gen))
+
+    with phase("9 robertson"):
+        rob = run_robertson(gen)
+        iso_row["robertson_launches"] = rob.pop("rhs_launches")
+        iso_jac_row.update(rob)
+
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("library_ms: null for every kernel: no single PyTorch call computes "
-          "the Arrhenius RHS, its fused value+Jacobian, or a whole adaptive "
-          "Rosenbrock23 solve")
+          "the Arrhenius or the isothermal CRNN RHS, their fused "
+          "value+Jacobian, or a whole adaptive Rosenbrock23 solve")
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")
     kernels = [{
@@ -830,7 +1145,9 @@ def main() -> int:
         ("arrhenius_rhs", "crnn_tpu/ops/crnn_kernels.py:171", kernel_row),
         ("arrhenius_rhs_jac", "crnn_tpu/ops/crnn_kernels.py:185", jac_row),
         ("arrh_rb23_solve", "crnn_tpu/ops/rb23_solve_kernel.py:85",
-         solve_row))]
+         solve_row),
+        ("crnn_rhs", "crnn_tpu/ops/crnn_kernels.py:67", iso_row),
+        ("crnn_rhs_jac", "crnn_tpu/ops/crnn_kernels.py:75", iso_jac_row))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,14 @@ class CaseSetup:
     dataset: Any                   # data.generate.Dataset
 
 
+def seed_generators(seed: int, n: int) -> list[torch.Generator]:
+    """``n`` independent CPU generators from one seed, as JAX splits its key
+    (e.g. into u0, noise and params): no stream depends on another's use."""
+    seeds = torch.randint(2**62, (n,),
+                          generator=torch.Generator().manual_seed(seed))
+    return [torch.Generator().manual_seed(int(s)) for s in seeds]
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)

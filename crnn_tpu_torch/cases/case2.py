@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 import torch
 
 from crnn_tpu_torch import clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case
+from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset
 from crnn_tpu_torch.data.truth import (CASE2_EA, CASE2_LOGA, case2_arrhenius,
                                        case2_truth, case2_truth_jac)
@@ -95,11 +95,8 @@ def build(cfg: Case2Config = Case2Config(),
         raise ValueError(f"unknown jac_mode: {cfg.jac_mode!r}")
     device = resolve_device(cfg.device)
     dtype = getattr(torch, cfg.dtype)
-    # three independent CPU streams from the seed, as JAX splits its key
-    # into (u0, noise, params): the params do not depend on the data
-    seeds = torch.randint(2**62, (3,),
-                          generator=torch.Generator().manual_seed(cfg.seed))
-    g_u0, g_noise, g_p = (torch.Generator().manual_seed(int(s)) for s in seeds)
+    # the params do not depend on the data
+    g_u0, g_noise, g_p = seed_generators(cfg.seed, 3)
     t1 = float(cfg.datasize * cfg.tstep)
     if dataset is None:
         u0 = make_u0(g_u0, cfg, dtype).to(device)

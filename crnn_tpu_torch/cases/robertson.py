@@ -1,0 +1,158 @@
+"""Robertson: strongly stiff CRNN over t in [0, 1e5] in float64, batch-mode
+training epoch (port of crnn_tpu/cases/robertson.py, ``grad_path='rev_scan'``).
+
+25 experiments (20 train / 5 validation) with Latin-hypercube initial
+conditions, 40 log-spaced save times, Rosenbrock23 with the closed-form
+CRNN Jacobian on the per-lane ``odesolve``, per-species atol,
+product-tied 10^w_out p2vec, dy/dt rescaling, global-norm clipping at 10
+and stochastic prefix horizons (sample = rand(32:40)). On a CUDA device
+every RHS call goes through the isothermal kernel
+(``ops/csrc/crnn_rhs.cu``) and every step's Jacobian through the
+value+Jacobian kernel (``ops/csrc/crnn_rhs_jac.cu``). The truth is always
+generated in float64 on the chosen device, with a forward-mode Jacobian.
+The adjoint gradient path, ``w_out_mask`` and the LM finish are not ported.
+
+    python -m crnn_tpu_torch.cases.robertson --epochs 2 [--device cpu]
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from crnn_tpu_torch import resolve_device
+from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.data.generate import (Dataset, generate_dataset_odesolve,
+                                          latin_hypercube)
+from crnn_tpu_torch.data.truth import ROBERTSON_K, robertson_truth
+from crnn_tpu_torch.models.crnn import make_crnn_scaled_rhs
+from crnn_tpu_torch.models.jacobian import make_crnn_scaled_jac
+from crnn_tpu_torch.ode.rosenbrock import Rosenbrock23
+from crnn_tpu_torch.ode.solve import odesolve
+from crnn_tpu_torch.train.loop import Trainer
+from crnn_tpu_torch.train.loss import make_trajectory_loss
+from crnn_tpu_torch.train.optimizers import adamw_like
+from crnn_tpu_torch.transforms.p2vec import (init_params_robertson,
+                                             p2vec_robertson)
+
+# per-species absolute tolerances of training (rober_crnn.jl:34) and of the
+# truth solve
+ATOL = (1e-6, 1e-8, 1e-6)
+TRUTH_ATOL = (1e-10, 1e-12, 1e-10)
+# the RHS and Jacobian clip y to [lb, inf): no upper bound, as rober_crnn.jl
+UB = math.inf
+
+
+@dataclass
+class RobertsonConfig:
+    # reference constants: rober_crnn.jl:16-41
+    ns: int = 3
+    nr: int = 6
+    datasize: int = 40
+    batchsize: int = 32
+    n_exp_train: int = 20
+    n_exp_val: int = 5
+    noise: float = 1e-4
+    lr: float = 5e-3
+    weight_decay: float = 1e-6
+    grad_max: float = 10.0
+    rtol: float = 1e-3
+    lb: float = 1e-8
+    seed: int = 1234
+    max_steps: int = 192
+    # training dtype; the truth is always generated in float64 and cast
+    dtype: str = "float64"
+    device: str = "cuda"
+    # True runs the plain PyTorch RHS and Jacobian in place of the CUDA
+    # kernels: the explicit switch for holding the kernel path against the
+    # plain path
+    rhs_plain: bool = False
+
+    @property
+    def n_exp(self) -> int:
+        return self.n_exp_train + self.n_exp_val
+
+
+def build(cfg: RobertsonConfig = RobertsonConfig(),
+          dataset: Optional[Dataset] = None) -> CaseSetup:
+    """The robertson setup on ``cfg.device``. ``dataset`` (e.g. from
+    ``convert.dataset_from_jax``) replaces the generated one."""
+    device = resolve_device(cfg.device)
+    train_dtype = getattr(torch, cfg.dtype)
+    f64 = torch.float64
+    g_u0, g_lhc, g_noise, g_p = seed_generators(cfg.seed, 4)
+    if dataset is None:
+        # rober_crnn.jl:43-47: u0 ~ U(0,1)*2+0.5, then y2 = lb and (y1, y3)
+        # from a Latin hypercube / n + 0.5
+        u0 = torch.rand((cfg.n_exp, cfg.ns), generator=g_u0, dtype=f64) \
+            * 2.0 + 0.5
+        u0[:, 1] = cfg.lb
+        lhc = latin_hypercube(g_lhc, cfg.n_exp, 2, f64) + 0.5
+        u0[:, 0], u0[:, 2] = lhc[:, 0], lhc[:, 1]
+        saveat = 10.0 ** torch.linspace(0.0, 5.0, cfg.datasize, dtype=f64,
+                                        device=device)
+        dataset = generate_dataset_odesolve(
+            g_noise, robertson_truth, Rosenbrock23(), u0.to(device),
+            torch.tensor(ROBERTSON_K, dtype=f64, device=device), 0.0,
+            float(saveat[-1]), saveat, rtol=1e-8,
+            atol=torch.tensor(TRUTH_ATOL, dtype=f64, device=device),
+            noise=cfg.noise, scale_lb=0.0)
+        if train_dtype != f64:
+            dataset = dataset._replace(**{
+                f: getattr(dataset, f).to(train_dtype)
+                for f in ("u0", "ys", "ys_clean", "ts", "yscale")})
+    t1 = float(dataset.ts[-1])
+    dydt_scale = dataset.yscale / t1
+    atol = torch.tensor(ATOL, dtype=train_dtype, device=device)
+
+    rhs = make_crnn_scaled_rhs(cfg.lb, UB, dydt_scale, plain=cfg.rhs_plain)
+    solver = Rosenbrock23(jac=make_crnn_scaled_jac(cfg.lb, UB, dydt_scale,
+                                                   plain=cfg.rhs_plain))
+
+    def weights_fn(p):
+        return p2vec_robertson(p, cfg.ns, cfg.nr)
+
+    loss_fn = make_trajectory_loss(yscale=dataset.yscale)
+
+    def make_loss_batch(unroll):
+        def loss_batch(p, idxs, masks):
+            sol = odesolve(rhs, solver, dataset.u0[idxs], 0.0, t1, dataset.ts,
+                           args=weights_fn(p), rtol=cfg.rtol, atol=atol,
+                           max_steps=cfg.max_steps, unroll=unroll)
+            return loss_fn(sol.ys, dataset.ys[idxs], masks)
+        return loss_batch
+
+    trainer = Trainer(
+        loss_batch=make_loss_batch("scan"),
+        loss_batch_eval=make_loss_batch("while"),
+        optimizer=adamw_like(cfg.lr, weight_decay=cfg.weight_decay,
+                             grad_max=cfg.grad_max),
+        n_exp_train=cfg.n_exp_train,
+        n_exp=cfg.n_exp,
+        n_save=cfg.datasize,
+        horizon_range=(cfg.batchsize, cfg.datasize),
+    )
+    return CaseSetup(
+        name="robertson", trainer=trainer,
+        init_params=init_params_robertson(g_p, cfg.ns, cfg.nr,
+                                          dtype=train_dtype, device=device),
+        weights_fn=weights_fn, dataset=dataset)
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--epochs", type=int, default=500)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default="runs_torch")
+    args = ap.parse_args(argv)
+    return run_case(build(RobertsonConfig(device=args.device)),
+                    n_epoch=args.epochs, out_dir=args.out)
+
+
+if __name__ == "__main__":
+    main()

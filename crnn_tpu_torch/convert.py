@@ -26,18 +26,45 @@ def params_from_jax(p: np.ndarray, device="cuda") -> torch.Tensor:
 
 def opt_state_from_jax(mu: np.ndarray, nu: np.ndarray, count,
                        device="cuda") -> AdamState:
-    """optax's ``ScaleByAdamState`` (mu, nu, count) of ``expdecay_adamw``."""
+    """optax's ``ScaleByAdamState`` (mu, nu, count)."""
     return AdamState(_tensor(mu, device), _tensor(nu, device),
                      int(np.asarray(count)))
 
 
+def _find_adam_state(state):
+    if all(hasattr(state, k) for k in ("mu", "nu", "count")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state, device="cuda") -> AdamState:
+    """The Adam moments of an optax state of the JAX package's optimizers,
+    whatever its chain: ``adamw_like`` nests them as ``(decay, (adam,
+    scale))`` or, with a clip, ``(clip, (decay, (adam, scale)))``, and
+    ``expdecay_adamw`` as ``(clip, (decay, (adam, schedule)))``. The state
+    is walked as plain tuples, without importing optax."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no (mu, nu, count) Adam state in the optax state")
+    return opt_state_from_jax(np.asarray(adam.mu), np.asarray(adam.nu),
+                              adam.count, device=device)
+
+
 def dataset_from_jax(u0: np.ndarray, ys: np.ndarray, ys_clean: np.ndarray,
-                     ts: np.ndarray, yscale: np.ndarray,
+                     ts: np.ndarray, yscale: np.ndarray, success=None,
                      device="cuda") -> Dataset:
-    """A ``Dataset``; every truth solve is taken as successful."""
+    """A ``Dataset``. ``success`` (n_exp,) is the JAX truth solve's health;
+    without it every truth solve is taken as successful."""
     u0_t = _tensor(u0, device)
+    if success is None:
+        ok = torch.ones(u0_t.shape[0], dtype=torch.bool, device=u0_t.device)
+    else:
+        ok = _tensor(np.asarray(success, dtype=bool), device)
     return Dataset(u0=u0_t, ys=_tensor(ys, device),
                    ys_clean=_tensor(ys_clean, device), ts=_tensor(ts, device),
-                   yscale=_tensor(yscale, device),
-                   success=torch.ones(u0_t.shape[0], dtype=torch.bool,
-                                      device=u0_t.device))
+                   yscale=_tensor(yscale, device), success=ok)

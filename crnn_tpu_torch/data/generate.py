@@ -1,9 +1,12 @@
 """Synthetic datasets: batched truth solve + noise + scales
 (port of crnn_tpu/data/generate.py).
 
-All experiments integrate together through the port's own
-``batch_odesolve_rb23`` (dense W-solve with the truth's closed-form
-Jacobian, ``unroll='while'``), so no JAX is needed to make case2's data.
+All experiments integrate together, so no JAX is needed to make the data:
+``generate_dataset`` solves with the port's batch-major Rosenbrock23 (dense
+W-solve with the truth's closed-form Jacobian; case2), and
+``generate_dataset_odesolve`` with the per-lane ``odesolve`` and any solver
+(case1: Tsit5; robertson: Rosenbrock23 with a forward-mode Jacobian), both
+with ``unroll='while'``.
 """
 
 from __future__ import annotations
@@ -12,7 +15,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from crnn_tpu_torch.ode.base import Solver
 from crnn_tpu_torch.ode.batch_solve import batch_odesolve_rb23
+from crnn_tpu_torch.ode.solve import odesolve
 
 
 class Dataset(NamedTuple):
@@ -31,6 +36,28 @@ def max_min_scale(ys: torch.Tensor, lb: float) -> torch.Tensor:
     return per_exp.amax(dim=0) + lb
 
 
+def latin_hypercube(gen: torch.Generator, n: int, d: int,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Integer Latin hypercube / n (the reference's ``randomLHC(n, d) ./ n``,
+    robertson/rober_crnn.jl:46): each column an independent permutation of
+    {1..n}/n. ``gen`` is a CPU generator."""
+    cols = [torch.randperm(n, generator=gen) + 1 for _ in range(d)]
+    return torch.stack(cols, dim=1).to(dtype) / n
+
+
+def _noisy_dataset(gen, u0_list, ys_clean, success, saveat, noise, obs_dim,
+                   scale_lb) -> Dataset:
+    """Multiplicative Gaussian noise ``ys_clean * (1 + noise * eps)`` and
+    max-min scales. ``gen`` is a CPU generator, so the noise is the same on
+    every device."""
+    if obs_dim is not None:
+        ys_clean = ys_clean[..., :obs_dim]
+    eps = torch.randn(ys_clean.shape, generator=gen, dtype=ys_clean.dtype)
+    ys = ys_clean + eps.to(ys_clean.device) * ys_clean * noise
+    return Dataset(u0=u0_list, ys=ys, ys_clean=ys_clean, ts=saveat,
+                   yscale=max_min_scale(ys, scale_lb), success=success)
+
+
 def generate_dataset(
     gen: torch.Generator,
     rhs,
@@ -47,20 +74,45 @@ def generate_dataset(
     scale_lb: float = 0.0,
     max_steps: int = 16384,
 ) -> Dataset:
-    """Solve the truth for every experiment, add multiplicative Gaussian
-    noise ``ys_clean * (1 + noise * eps)``, compute max-min scales.
+    """Solve the truth for every experiment with the batch-major
+    Rosenbrock23, add noise, compute max-min scales.
 
     ``rhs(t, y (B, n), k (B, nk))`` and ``rhs_jac -> (du, J (B, n, n))`` are
-    batched; ``k`` holds per-experiment constants. ``gen`` is a CPU
-    generator, so the noise is the same on every device. ``obs_dim``
-    truncates the state before noise and scales (case2 drops T).
+    batched; ``k`` holds per-experiment constants. ``obs_dim`` truncates the
+    state before noise and scales (case2 drops T).
     """
     with torch.no_grad():
         sol = batch_odesolve_rb23(
             rhs, rhs_jac, u0_list, t0, t1, saveat, args=k, rtol=rtol,
             atol=atol, max_steps=max_steps, unroll="while", jac_mode="dense")
-    ys_clean = sol.ys if obs_dim is None else sol.ys[..., :obs_dim]
-    eps = torch.randn(ys_clean.shape, generator=gen, dtype=ys_clean.dtype)
-    ys = ys_clean + eps.to(ys_clean.device) * ys_clean * noise
-    return Dataset(u0=u0_list, ys=ys, ys_clean=ys_clean, ts=saveat,
-                   yscale=max_min_scale(ys, scale_lb), success=sol.success)
+    return _noisy_dataset(gen, u0_list, sol.ys, sol.success, saveat, noise,
+                          obs_dim, scale_lb)
+
+
+def generate_dataset_odesolve(
+    gen: torch.Generator,
+    rhs,
+    solver: Solver,
+    u0_list: torch.Tensor,
+    k: torch.Tensor,
+    t0,
+    t1,
+    saveat: torch.Tensor,
+    rtol,
+    atol,
+    noise: float,
+    scale_lb: float = 0.0,
+    max_steps: int = 16384,
+) -> Dataset:
+    """``generate_dataset`` of the JAX package: the truth of every
+    experiment through the per-lane ``odesolve`` with ``solver``
+    (``unroll='while'``), then noise and max-min scales. ``k`` (nk,) is
+    shared or (n_exp, nk) per experiment."""
+    if k.dim() == 1:
+        k = k.expand(u0_list.shape[0], -1)
+    with torch.no_grad():
+        sol = odesolve(rhs, solver, u0_list, t0, t1, saveat, args=k,
+                       rtol=rtol, atol=atol, max_steps=max_steps,
+                       unroll="while")
+    return _noisy_dataset(gen, u0_list, sol.ys, sol.success, saveat, noise,
+                          None, scale_lb)

@@ -1,0 +1,44 @@
+"""Isothermal CRNN right-hand sides, lane-batched (port of
+crnn_tpu/models/crnn.py:make_crnn_rhs and make_crnn_scaled_rhs).
+
+    du = w_out @ exp(min(w_in^T @ log(clip(y, lb, ub)) + w_b, exp_cap))
+
+The JAX package writes each RHS for one lane and batches it with ``vmap``;
+here ``rhs(t, y (B, ns), w) -> (B, ns)`` takes the lane axis first, which is
+the shape of the isothermal kernel (``ops/csrc/crnn_rhs.cu``): every call
+on a CUDA tensor is one kernel launch, with the backward by autograd of the
+plain version. The exponent cap of 32 keeps the rates of wild trial steps
+finite, so reverse-mode gradients are not poisoned by inf * 0.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from crnn_tpu_torch.ops.crnn_kernels import make_crnn_rhs_op
+
+
+def make_crnn_rhs(lb: float, ub: float, exp_cap: float = 32.0,
+                  plain: bool = False) -> Callable:
+    """Isothermal mass-action CRNN (case1). ``plain=True`` runs the plain
+    version in place of the kernel on any device."""
+    op = make_crnn_rhs_op(lb, ub, exp_cap, plain)
+
+    def rhs(t, y, w):
+        return op(y, w.w_in, w.w_b, w.w_out)
+
+    return rhs
+
+
+def make_crnn_scaled_rhs(lb: float, ub: float, dydt_scale: torch.Tensor,
+                         exp_cap: float = 32.0, plain: bool = False) -> Callable:
+    """CRNN with per-species dy/dt rescaling (robertson/rober_crnn.jl:113-116):
+    the isothermal RHS times ``dydt_scale = yscale / t_end`` (ns,)."""
+    op = make_crnn_rhs_op(lb, ub, exp_cap, plain)
+
+    def rhs(t, y, w):
+        return op(y, w.w_in, w.w_b, w.w_out) * dydt_scale
+
+    return rhs

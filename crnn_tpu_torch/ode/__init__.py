@@ -1,1 +1,2 @@
-"""Batch-major Rosenbrock23 solve and its helpers (port of crnn_tpu.ode)."""
+"""ODE solvers (port of crnn_tpu.ode): the per-lane driver with Tsit5 and
+Rosenbrock23, and the batch-major Rosenbrock23."""

@@ -28,7 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from crnn_tpu_torch import clip
 from crnn_tpu_torch.ode.base import hermite_interp_matrix_from_endpoints
-from crnn_tpu_torch.ode.controller import propose_dt
+from crnn_tpu_torch.ode.controller import (error_norm, initial_step,
+                                           propose_dt)
 from crnn_tpu_torch.ode.linsolve import inv_small_nopivot_minpiv, pivot_ok
 
 _D = 1.0 / (2.0 + math.sqrt(2.0))
@@ -46,41 +47,6 @@ class BatchODESolution(NamedTuple):
     n_steps: torch.Tensor  # (B,)
     final_t: torch.Tensor  # (B,)
     final_y: torch.Tensor  # (B, ns)
-
-
-def _nan_to_inf(x):
-    return torch.nan_to_num(x, nan=math.inf, posinf=math.inf, neginf=math.inf)
-
-
-def _lane_norm(err, y0, y1, rtol, atol):
-    """Per-lane Hairer scaled RMS norm over the species axis."""
-    scale = atol + rtol * torch.maximum(torch.abs(y0), torch.abs(y1))
-    ratio = _nan_to_inf(err / scale)
-    return torch.sqrt(torch.mean(ratio**2, dim=-1))
-
-
-def _initial_step_batched(f, t0, t1, y0, args, order, rtol, atol):
-    """Hairer automatic h0, vectorised over lanes."""
-    b = y0.shape[0]
-    t0v = torch.full((b,), float(t0), dtype=y0.dtype, device=y0.device)
-    scale = atol + rtol * torch.abs(y0)
-    f0 = f(t0v, y0, args)
-    d0 = torch.sqrt(torch.mean((y0 / scale) ** 2, dim=-1))
-    d1 = torch.sqrt(torch.mean((f0 / scale) ** 2, dim=-1))
-    tiny = y0.new_full((), 1e-30)
-    small = y0.new_full((), 1e-6)
-    span = abs(float(t1) - float(t0))
-    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), small,
-                     0.01 * d0 / torch.maximum(d1, tiny))
-    h0 = torch.clamp(h0, max=span)
-    y1 = y0 + h0[:, None] * f0
-    f1 = f(t0v + h0, y1, args)
-    d2 = torch.sqrt(torch.mean(((f1 - f0) / scale) ** 2, dim=-1)) \
-        / torch.maximum(h0, tiny)
-    dmax = torch.maximum(d1, d2)
-    h1 = torch.where(dmax <= 1e-15, torch.maximum(small, h0 * 1e-3),
-                     (0.01 / torch.maximum(dmax, tiny)) ** (1.0 / (order + 1.0)))
-    return torch.clamp(torch.minimum(100.0 * h0, h1), max=span)
 
 
 def batch_odesolve_rb23(
@@ -117,8 +83,7 @@ def batch_odesolve_rb23(
     dtmin = dtmin_frac * (t1 - t0)
     order = 2
 
-    dt_init = _initial_step_batched(f, t0, t1, y0, args, order, rtol,
-                                    atol).detach()
+    dt_init = initial_step(f, t0, t1, y0, args, order, rtol, atol).detach()
 
     ys0 = torch.where((saveat <= t0)[None, :, None], y0[:, None, :],
                       torch.zeros((b, saveat.shape[0], ns), dtype=dtype,
@@ -173,7 +138,7 @@ def batch_odesolve_rb23(
         # inverse and error estimate, so the lane's step is rejected
         ok = (torch.all(torch.isfinite(y1), dim=-1)
               & torch.all(torch.isfinite(y_err), dim=-1) & piv_good)
-        err = _lane_norm(y_err, y, y1, rtol, atol).detach()
+        err = error_norm(y_err, y, y1, rtol, atol).detach()
         err = torch.where(ok, err, torch.full_like(err, math.inf))
         accept = err <= 1.0
         t_new = t + dt

@@ -1,13 +1,21 @@
-"""Batched Arrhenius CRNN right-hand side: CUDA kernel and plain version
-(port of crnn_tpu/ops/crnn_kernels.py, Arrhenius part).
+"""Batched CRNN right-hand sides: CUDA kernels and plain versions (port of
+crnn_tpu/ops/crnn_kernels.py).
 
-``arrhenius_rhs_batched`` launches the hand-written Hopper kernel
-(``csrc/arrhenius_rhs.cu``, replacing the Pallas ``_arrh_rhs_kernel``) and
-``arrhenius_rhs_jac_batched`` the dense value+Jacobian kernel
-(``csrc/arrhenius_rhs_jac.cu``, replacing ``_arrh_rhs_jac_kernel``) for a
-CUDA tensor; for a CPU tensor each computes its plain version. There is no
-batch-size threshold: the JAX package's ``min_pallas_batch=4096`` was a TPU
-measurement. On a CUDA tensor the kernel is launched or the call raises.
+Four wrappers, one per Pallas kernel of the JAX package, each launching a
+hand-written Hopper kernel for a CUDA tensor and computing its plain version
+for a CPU tensor:
+
+- ``crnn_rhs_batched`` (``csrc/crnn_rhs.cu``, replacing ``_rhs_kernel``) and
+  ``crnn_rhs_jac_batched`` (``csrc/crnn_rhs_jac.cu``, replacing
+  ``_rhs_jac_kernel``): the isothermal RHS and its value+Jacobian, y (B, ns);
+- ``arrhenius_rhs_batched`` (``csrc/arrhenius_rhs.cu``, replacing
+  ``_arrh_rhs_kernel``) and ``arrhenius_rhs_jac_batched``
+  (``csrc/arrhenius_rhs_jac.cu``, replacing ``_arrh_rhs_jac_kernel``): the
+  Arrhenius pair, y (B, ns+1) with T last.
+
+There is no batch-size threshold: the JAX package's ``min_pallas_batch`` was
+a TPU measurement. On a CUDA tensor the kernel is launched or the call
+raises.
 
 The low-rank factors (``arrhenius_rhs_jac_factors_reference``) stay plain
 torch, as they are XLA in the JAX package.
@@ -27,11 +35,31 @@ _INV_R_KCAL = -1.0 / 1.98720425864083e-3
 _MAX_NS = 32
 _MAX_NR = 32
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_SYMBOL = {"arrhenius_rhs": "arrh_rhs", "arrhenius_rhs_jac": "arrh_rhs_jac"}
+_SYMBOL = {"arrhenius_rhs": "arrh_rhs", "arrhenius_rhs_jac": "arrh_rhs_jac",
+           "crnn_rhs": "crnn_rhs", "crnn_rhs_jac": "crnn_rhs_jac"}
 
 
 def _min_cap(z, exp_cap):
     return torch.minimum(z, z.new_full((), exp_cap))
+
+
+def crnn_rhs_batched_reference(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
+    """du for a batch: y (B, ns) -> (B, ns); w_in (ns, nr)."""
+    logx = torch.log(clip(y, lb, ub))
+    rates = torch.exp(_min_cap(logx @ w_in + w_b[None, :], exp_cap))
+    return rates @ w_out.T
+
+
+def crnn_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb, ub,
+                                   exp_cap=_EXP_CAP):
+    """(du, J) with J (B, ns, ns) = (w_out . rates[b]) @ w_in^T . dlog[b],
+    dlog = 1{lb < y < ub} / clip(y, lb, ub)."""
+    yc = clip(y, lb, ub)
+    rates = torch.exp(_min_cap(torch.log(yc) @ w_in + w_b[None, :], exp_cap))
+    du = rates @ w_out.T
+    dlog = ((y > lb) & (y < ub)).to(y.dtype) / yc
+    jac = torch.einsum("br,ir,jr->bij", rates, w_out, w_in) * dlog[:, None, :]
+    return du, jac
 
 
 def arrhenius_rhs_batched_reference(y, w_in, w_b, w_out, lb, ub,
@@ -71,12 +99,12 @@ def arrhenius_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb, ub,
     return du, torch.cat([top, bottom], dim=1)
 
 
-def _kernel_fn(name, dtype, n_out):
+def _kernel_fn(name, dtype, n_ptr):
     lib = _build.load(name)
     fn = getattr(lib, f"{_SYMBOL[name]}_{SUFFIX[dtype]}")
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * (5 + n_out) + [
+        fn.argtypes = [ptr] * n_ptr + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
             ctypes.c_double, ctypes.c_double, ptr]
         fn.restype = ctypes.c_int
@@ -84,11 +112,12 @@ def _kernel_fn(name, dtype, n_out):
 
 
 def check_kernel_inputs(who, y, w_in, w_b, w_out, max_ns=_MAX_NS,
-                        max_nr=_MAX_NR):
-    """(ns, nr) after the checks every Arrhenius kernel wrapper makes before
-    it hands pointers to a kernel: a CUDA device, f32 or f64, ns and nr
-    within the kernel's caps, matching shapes, devices and dtypes, and a
-    contiguous ``y``."""
+                        max_nr=_MAX_NR, temperature=True):
+    """(ns, nr) after the checks every kernel wrapper makes before it hands
+    pointers to a kernel: a CUDA device, f32 or f64, ns and nr within the
+    kernel's caps, matching shapes, devices and dtypes, and a contiguous
+    ``y``. ``temperature``: y (B, ns+1) and w_in (ns+1, nr) with the T
+    column and the Ea row (Arrhenius); else y (B, ns) and w_in (ns, nr)."""
     if y.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {y.device}")
     if y.dtype not in SUFFIX:
@@ -97,8 +126,9 @@ def check_kernel_inputs(who, y, w_in, w_b, w_out, max_ns=_MAX_NS,
     if not (1 <= ns <= max_ns and 1 <= nr <= max_nr):
         raise ValueError(f"{who}: ns={ns}, nr={nr}; the kernel takes "
                          f"1 <= ns <= {max_ns}, 1 <= nr <= {max_nr}")
-    if (y.dim() != 2 or y.shape[1] != ns + 1
-            or tuple(w_in.shape) != (ns + 1, nr) or tuple(w_b.shape) != (nr,)):
+    nf = ns + 1 if temperature else ns
+    if (y.dim() != 2 or y.shape[1] != nf
+            or tuple(w_in.shape) != (nf, nr) or tuple(w_b.shape) != (nr,)):
         raise ValueError(
             f"{who}: shapes y {tuple(y.shape)}, w_in {tuple(w_in.shape)}, "
             f"w_b {tuple(w_b.shape)}, w_out ({ns}, {nr})")
@@ -110,18 +140,64 @@ def check_kernel_inputs(who, y, w_in, w_b, w_out, max_ns=_MAX_NS,
     return ns, nr
 
 
-def _launch(name, y, w_in, w_b, w_out, outs, lb, ub, exp_cap):
-    ns, nr = w_out.shape
-    weights = (w_in[:ns].contiguous(), w_in[ns].contiguous(),
-               w_b.contiguous(), w_out.contiguous())
+def _launch(name, y, weights, outs, lb, ub, exp_cap):
+    """Launch ``name`` on y, the kernel's weight operands (each made
+    contiguous, w_out last) and ``outs`` on the current stream; raise on a
+    CUDA error."""
+    ns, nr = weights[-1].shape
+    weights = [w.contiguous() for w in weights]
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = _kernel_fn(name, y.dtype, len(outs))(
+        rc = _kernel_fn(name, y.dtype, 1 + len(weights) + len(outs))(
             y.data_ptr(), *(w.data_ptr() for w in weights),
             *(o.data_ptr() for o in outs), y.shape[0], ns, nr, float(lb),
             float(ub), float(exp_cap), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _arrhenius_weights(w_in, w_b, w_out):
+    """The Arrhenius kernels' weight operands: species orders, Ea row, bias,
+    stoichiometry."""
+    ns = w_out.shape[0]
+    return w_in[:ns], w_in[ns], w_b, w_out
+
+
+def crnn_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
+    """Batched isothermal RHS: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor. ``crnn_rhs_batched.launches`` counts the kernel
+    launches."""
+    if y.device.type == "cpu":
+        return crnn_rhs_batched_reference(y, w_in, w_b, w_out, lb, ub, exp_cap)
+    check_kernel_inputs("crnn_rhs_batched", y, w_in, w_b, w_out,
+                        temperature=False)
+    du = torch.empty_like(y)
+    _launch("crnn_rhs", y, (w_in, w_b, w_out), (du,), lb, ub, exp_cap)
+    crnn_rhs_batched.launches += 1
+    return du
+
+
+crnn_rhs_batched.launches = 0
+
+
+def crnn_rhs_jac_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
+    """Batched isothermal (du, J): the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor. ``crnn_rhs_jac_batched.launches`` counts
+    the kernel launches."""
+    if y.device.type == "cpu":
+        return crnn_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb, ub,
+                                              exp_cap)
+    ns, _ = check_kernel_inputs("crnn_rhs_jac_batched", y, w_in, w_b, w_out,
+                                temperature=False)
+    du = torch.empty_like(y)
+    jac = torch.empty((y.shape[0], ns, ns), dtype=y.dtype, device=y.device)
+    _launch("crnn_rhs_jac", y, (w_in, w_b, w_out), (du, jac), lb, ub,
+            exp_cap)
+    crnn_rhs_jac_batched.launches += 1
+    return du, jac
+
+
+crnn_rhs_jac_batched.launches = 0
 
 
 def arrhenius_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
@@ -133,7 +209,8 @@ def arrhenius_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
                                                exp_cap)
     check_kernel_inputs("arrhenius_rhs_batched", y, w_in, w_b, w_out)
     du = torch.empty_like(y)
-    _launch("arrhenius_rhs", y, w_in, w_b, w_out, (du,), lb, ub, exp_cap)
+    _launch("arrhenius_rhs", y, _arrhenius_weights(w_in, w_b, w_out), (du,),
+            lb, ub, exp_cap)
     arrhenius_rhs_batched.launches += 1
     return du
 
@@ -152,8 +229,8 @@ def arrhenius_rhs_jac_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
     du = torch.empty_like(y)
     jac = torch.empty((y.shape[0], ns + 1, ns + 1), dtype=y.dtype,
                       device=y.device)
-    _launch("arrhenius_rhs_jac", y, w_in, w_b, w_out, (du, jac), lb, ub,
-            exp_cap)
+    _launch("arrhenius_rhs_jac", y, _arrhenius_weights(w_in, w_b, w_out),
+            (du, jac), lb, ub, exp_cap)
     arrhenius_rhs_jac_batched.launches += 1
     return du, jac
 
@@ -196,19 +273,17 @@ def make_arrhenius_factor_op(lb: float, ub: float, exp_cap: float = _EXP_CAP):
 
 
 def _kernel_forward_op(kernel, reference):
-    """A ``torch.autograd.Function`` with the kernel forward (the plain
-    version under ``plain``) and a backward by autograd of the plain
-    version, as the ``custom_vjp`` pairs at
+    """A ``torch.autograd.Function`` with the kernel forward and a backward
+    by autograd of the plain version, as the ``custom_vjp`` pairs at
     crnn_tpu/ops/crnn_kernels.py:372-405 do: the JAX package has no backward
     kernel."""
 
     class Op(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, y, w_in, w_b, w_out, lb, ub, exp_cap, plain):
+        def forward(ctx, y, w_in, w_b, w_out, lb, ub, exp_cap):
             ctx.save_for_backward(y, w_in, w_b, w_out)
             ctx.consts = (lb, ub, exp_cap)
-            fn = reference if plain else kernel
-            return fn(y, w_in, w_b, w_out, lb, ub, exp_cap)
+            return kernel(y, w_in, w_b, w_out, lb, ub, exp_cap)
 
         @staticmethod
         def backward(ctx, *g):
@@ -217,11 +292,25 @@ def _kernel_forward_op(kernel, reference):
             with torch.enable_grad():
                 out = reference(*inputs, *ctx.consts)
                 grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
-            return (*grads, None, None, None, None)
+            return (*grads, None, None, None)
 
     return Op
 
 
+def _op(function, reference, lb, ub, exp_cap, plain):
+    """``(y, w_in, w_b, w_out) -> out``: the plain version itself under
+    ``plain`` (on any device; ``torch.func`` transforms can differentiate
+    it), else ``function`` (kernel forward, plain-version backward)."""
+    if plain:
+        return lambda y, w_in, w_b, w_out: reference(y, w_in, w_b, w_out, lb,
+                                                     ub, exp_cap)
+    return lambda y, w_in, w_b, w_out: function.apply(y, w_in, w_b, w_out, lb,
+                                                      ub, exp_cap)
+
+
+_CRNNRHS = _kernel_forward_op(crnn_rhs_batched, crnn_rhs_batched_reference)
+_CRNNRHSJac = _kernel_forward_op(crnn_rhs_jac_batched,
+                                 crnn_rhs_jac_batched_reference)
 _ArrheniusRHS = _kernel_forward_op(arrhenius_rhs_batched,
                                    arrhenius_rhs_batched_reference)
 _ArrheniusRHSJac = _kernel_forward_op(arrhenius_rhs_jac_batched,
@@ -233,14 +322,26 @@ def make_arrhenius_ops(lb: float, ub: float, exp_cap: float = _EXP_CAP,
     """Differentiable batched Arrhenius ``(rhs_op, rhs_jac_op)`` pair for the
     batch-major solve, ``(y, w_in, w_b, w_out) -> du`` and ``-> (du, J)``:
     kernel forward, plain-version backward. ``plain=True`` runs the plain
-    version forward too, on any device (the explicit switch that
-    chip_smoke.py uses to hold the kernel path against the plain path)."""
+    version instead, on any device (the explicit switch that chip_smoke.py
+    uses to hold the kernel path against the plain path)."""
+    return (_op(_ArrheniusRHS, arrhenius_rhs_batched_reference, lb, ub,
+                exp_cap, plain),
+            _op(_ArrheniusRHSJac, arrhenius_rhs_jac_batched_reference, lb, ub,
+                exp_cap, plain))
 
-    def rhs_op(y, w_in, w_b, w_out):
-        return _ArrheniusRHS.apply(y, w_in, w_b, w_out, lb, ub, exp_cap, plain)
 
-    def rhs_jac_op(y, w_in, w_b, w_out):
-        return _ArrheniusRHSJac.apply(y, w_in, w_b, w_out, lb, ub, exp_cap,
-                                      plain)
+def make_crnn_rhs_op(lb: float, ub: float, exp_cap: float = _EXP_CAP,
+                     plain: bool = False):
+    """Differentiable batched isothermal RHS op ``(y, w_in, w_b, w_out) ->
+    du``: kernel forward, plain-version backward (crnn_kernels.py:409 of the
+    JAX package). ``plain=True`` is the plain version itself."""
+    return _op(_CRNNRHS, crnn_rhs_batched_reference, lb, ub, exp_cap, plain)
 
-    return rhs_op, rhs_jac_op
+
+def make_crnn_rhs_jac_op(lb: float, ub: float, exp_cap: float = _EXP_CAP,
+                         plain: bool = False):
+    """Differentiable batched isothermal ``(y, w_in, w_b, w_out) -> (du, J)``
+    op: kernel forward, plain-version backward (crnn_kernels.py:431 of the
+    JAX package). ``plain=True`` is the plain version itself."""
+    return _op(_CRNNRHSJac, crnn_rhs_jac_batched_reference, lb, ub, exp_cap,
+               plain)

@@ -24,10 +24,8 @@ import math
 import torch
 
 from crnn_tpu_torch import clip
-from crnn_tpu_torch.ode.batch_solve import (_D, _DONE, _E32, _FAILED,
-                                            _RUNNING, _initial_step_batched,
-                                            _lane_norm)
-from crnn_tpu_torch.ode.controller import propose_dt
+from crnn_tpu_torch.ode.batch_solve import _D, _DONE, _E32, _FAILED, _RUNNING
+from crnn_tpu_torch.ode.controller import error_norm, initial_step, propose_dt
 from crnn_tpu_torch.ops import _build
 from crnn_tpu_torch.ops.crnn_kernels import (
     SUFFIX, arrhenius_rhs_batched_reference,
@@ -89,7 +87,7 @@ def arrh_rb23_solve_reference(y0, w_in, w_b, w_out, *, max_steps, t0, t1,
         return torch.full((b,), v, dtype=dtype, device=dev)
 
     # Hairer automatic initial dt; its RMS norms include the T row (:126-141)
-    dt = _initial_step_batched(rhs, t0, t1, y0, None, 2, rtol, atol)
+    dt = initial_step(rhs, t0, t1, y0, None, 2, rtol, atol)
 
     t_h, tn_h = (torch.full((b, k), hist_fill, dtype=dtype, device=dev)
                  for _ in range(2))
@@ -135,7 +133,7 @@ def arrh_rb23_solve_reference(y0, w_in, w_b, w_out, *, max_steps, t0, t1,
 
         ok = (torch.all(torch.isfinite(y1), dim=1)
               & torch.all(torch.isfinite(y_err), dim=1))
-        err = torch.where(ok, _lane_norm(y_err, y, y1, rtol, atol), math.inf)
+        err = torch.where(ok, error_norm(y_err, y, y1, rtol, atol), math.inf)
         accept = err <= 1.0
         t_new = t + dt
 

@@ -1,14 +1,17 @@
-"""ExpDecay-ADAMW written out by hand in optax's order
-(port of crnn_tpu/train/optimizers.py:expdecay_adamw).
+"""Adam with coupled weight decay, written out by hand in optax's order
+(port of crnn_tpu/train/optimizers.py: adamw_like and expdecay_adamw).
 
 One update, as ``optax.chain(clip_by_global_norm(grad_max),
-add_decayed_weights(wd), adam(schedule, b1, b2, eps=1e-8))`` computes it:
+add_decayed_weights(wd), adam(lr, b1, b2, eps=1e-8))`` computes it:
 
-1. clip by global norm: ``g <- g if |g| < grad_max else g / |g| * grad_max``;
+1. clip by global norm (optional): ``g <- g if |g| < grad_max else
+   g / |g| * grad_max``;
 2. coupled weight decay: ``g <- g + wd * p`` (Flux's ADAMW);
 3. Adam moments and bias correction at the incremented count;
-4. step ``-lr(count) * update`` with ``lr`` a staircase exponential decay
-   floored at ``lr_floor``, evaluated in float32 at the pre-increment count.
+4. step ``-lr(count) * update``, with ``lr`` the constant ``lr0``
+   (``adamw_like``) or a staircase exponential decay floored at
+   ``lr_floor``, evaluated in float32 at the pre-increment count
+   (``expdecay_adamw``).
 
 The state is ``AdamState(mu, nu, count)``; parameters are one flat tensor.
 """
@@ -29,11 +32,10 @@ class AdamState(NamedTuple):
 
 
 @dataclass(frozen=True)
-class ExpDecayAdamW:
+class AdamWLike:
+    """``adamw_like``: Adam at the constant learning rate ``lr0``."""
+
     lr0: float
-    decay_rate: float
-    decay_steps: int
-    lr_floor: float
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -44,16 +46,7 @@ class ExpDecayAdamW:
         return AdamState(torch.zeros_like(params), torch.zeros_like(params), 0)
 
     def lr(self, count: int) -> float:
-        """Staircase exponential decay floored at lr_floor (optax
-        exponential_decay with staircase=True, end_value=lr_floor). optax
-        evaluates it in float32 from its int32 count, so this does too."""
-        f32 = np.float32
-        if count <= 0:
-            decayed = f32(self.lr0)
-        else:
-            p = np.floor(f32(count) / f32(self.decay_steps))
-            decayed = f32(self.lr0) * np.power(f32(self.decay_rate), p)
-        return float(np.maximum(decayed, f32(self.lr_floor)))
+        return self.lr0
 
     def update(self, grad: torch.Tensor, state: AdamState,
                params: torch.Tensor) -> tuple[torch.Tensor, AdamState]:
@@ -75,11 +68,40 @@ class ExpDecayAdamW:
         return new_params, AdamState(mu, nu, count_inc)
 
 
+@dataclass(frozen=True)
+class ExpDecayAdamW(AdamWLike):
+    """``expdecay_adamw``: Adam on a staircase exponential decay of lr."""
+
+    decay_rate: float = 1.0
+    decay_steps: int = 1
+    lr_floor: float = 0.0
+
+    def lr(self, count: int) -> float:
+        """Staircase exponential decay floored at lr_floor (optax
+        exponential_decay with staircase=True, end_value=lr_floor). optax
+        evaluates it in float32 from its int32 count, so this does too."""
+        f32 = np.float32
+        if count <= 0:
+            decayed = f32(self.lr0)
+        else:
+            p = np.floor(f32(count) / f32(self.decay_steps))
+            decayed = f32(self.lr0) * np.power(f32(self.decay_rate), p)
+        return float(np.maximum(decayed, f32(self.lr_floor)))
+
+
+def adamw_like(lr: float, b1: float = 0.9, b2: float = 0.999,
+               weight_decay: float = 0.0,
+               grad_max: Optional[float] = None) -> AdamWLike:
+    """Coupled-decay Adam at a constant lr (case1, robertson)."""
+    return AdamWLike(lr, b1, b2, weight_decay=weight_decay, grad_max=grad_max)
+
+
 def expdecay_adamw(lr0: float, decay_rate: float, decay_steps: int,
                    lr_floor: float, b1: float = 0.9, b2: float = 0.999,
                    weight_decay: float = 0.0,
                    grad_max: Optional[float] = None) -> ExpDecayAdamW:
     """Staircase exponential lr decay floored at lr_floor, composed with the
     coupled-decay Adam (case2/case2.jl:31-32)."""
-    return ExpDecayAdamW(lr0, decay_rate, decay_steps, lr_floor, b1, b2,
-                         weight_decay=weight_decay, grad_max=grad_max)
+    return ExpDecayAdamW(lr0, b1, b2, weight_decay=weight_decay,
+                         grad_max=grad_max, decay_rate=decay_rate,
+                         decay_steps=decay_steps, lr_floor=lr_floor)

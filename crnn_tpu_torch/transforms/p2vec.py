@@ -1,6 +1,6 @@
 """Parameter vector -> physical CRNN weights (port of crnn_tpu/transforms/p2vec.py).
 
-Only the case2 (Arrhenius) variant is ported so far. JAX's ``clip`` is
+The case1, case2 (Arrhenius) and robertson variants are ported. JAX's ``clip`` is
 written as ``minimum(maximum(x, lo), hi)`` with tensor bounds
 (``crnn_tpu_torch.clip``): at a tie such as ``w_out == 0`` its gradient is
 0.5, as in JAX, where ``torch.clamp`` would give 1.
@@ -44,5 +44,46 @@ def init_params_case2(gen: torch.Generator, ns: int, nr: int,
     p = 0.1 * torch.randn(n, generator=gen, dtype=dtype)
     p[:nr] += 0.8
     p[nr * (ns + 1):nr * (ns + 2)] += 0.8
+    p[-1] = 0.1
+    return p.to(resolve_device(device))
+
+
+def p2vec_case1(p: torch.Tensor, ns: int, nr: int, b0: float = -10.0,
+                w_in_clip: float = 2.5) -> CRNNWeights:
+    """Sign-tied: p = [w_b(nr) | w_out(ns*nr)], w_b + b0, w_in =
+    clip(-w_out, 0, 2.5) (case1/case1.jl:70-78)."""
+    w_b = p[:nr] + b0
+    w_out = p[nr:].reshape(ns, nr)
+    return CRNNWeights(w_in=clip(-w_out, 0.0, w_in_clip), w_b=w_b, w_out=w_out)
+
+
+def init_params_case1(gen: torch.Generator, ns: int, nr: int,
+                      scale: float = 0.1, dtype=torch.float32,
+                      device="cuda") -> torch.Tensor:
+    """N(0, scale^2) of length nr*(ns+1). ``gen`` is a CPU generator."""
+    p = scale * torch.randn(nr * (ns + 1), generator=gen, dtype=dtype)
+    return p.to(resolve_device(device))
+
+
+def p2vec_robertson(p: torch.Tensor, ns: int, nr: int,
+                    w_in_clip: float = 2.5) -> CRNNWeights:
+    """Product-tied: p = [w_b(nr) | w_out_raw(ns*nr) | w_in(ns*nr) | slope],
+    w_b * 10|slope|, w_out = -w_in * 10^w_out_raw, w_in clipped to
+    [0, 2.5] (robertson/rober_crnn.jl:80-92)."""
+    slope = torch.abs(p[-1])
+    w_b = p[:nr] * (10.0 * slope)
+    w_in = p[nr * (ns + 1):nr * (2 * ns + 1)].reshape(ns, nr)
+    w_out_raw = p[nr:nr * (ns + 1)].reshape(ns, nr)
+    w_out = -w_in * 10.0 ** w_out_raw
+    return CRNNWeights(w_in=clip(w_in, 0.0, w_in_clip), w_b=w_b, w_out=w_out)
+
+
+def init_params_robertson(gen: torch.Generator, ns: int, nr: int,
+                          dtype=torch.float64, device="cuda") -> torch.Tensor:
+    """U(-1, 1) * sqrt(6/(ns+nr)) of length nr*(2ns+1)+1, slope 0.1
+    (rober_crnn.jl:37-39). ``gen`` is a CPU generator."""
+    n = nr * (2 * ns + 1) + 1
+    lim = (6.0 / (ns + nr)) ** 0.5
+    p = (torch.rand(n, generator=gen, dtype=dtype) * 2.0 - 1.0) * lim
     p[-1] = 0.1
     return p.to(resolve_device(device))

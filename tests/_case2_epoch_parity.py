@@ -1,14 +1,19 @@
-"""Helper of tests/test_torch_case2_epoch*.py: one whole case2 batch-mode
-training epoch (either W-solve, ``jac_mode``), crnn_tpu_torch against
-crnn_tpu on the same dataset, params, optimizer state and permutation,
-all carried across through crnn_tpu_torch.convert.
+"""Helper of the whole-epoch parity tests (tests/test_torch_case2_epoch*.py,
+tests/test_torch_case1_epoch.py, tests/test_torch_robertson_epoch.py): one
+batch-mode training epoch, crnn_tpu_torch against crnn_tpu.
 
-Reduced to 4 training and 2 held-out experiments; ns=6, nr=3, 50 save
-points and max_steps 128 as shipped. The epoch compared is the second one,
-so the optimizer state (mu, nu, count=1) is not trivial. In f64 the two
-packages run the same arithmetic up to summation order: loss, gradient,
-updated params and eval losses agree at rtol 1e-6. In f32 the rounding of
-~128 solver steps accumulates: rtol 1e-3.
+The JAX run trains one epoch; its params, optax state (whatever the
+optimizer's chain) and dataset (with its truth-solve ``success``) cross to
+the port through crnn_tpu_torch.convert, and both packages run the second
+epoch on the same permutation and horizon masks, which JAX drew from its
+key. The epoch compared is the second one, so the optimizer state (mu, nu,
+count=1) is not trivial. In f64 the two run the same arithmetic up to
+summation order: loss, gradient, updated params, eval losses and metrics
+agree at rtol 1e-6. In f32 the rounding of ~128 solver steps accumulates:
+rtol 1e-3.
+
+case2 is reduced to 4 training and 2 held-out experiments; ns=6, nr=3, 50
+save points and max_steps 128 as shipped.
 """
 
 import jax
@@ -24,46 +29,49 @@ from crnn_tpu_torch.train.loop import TrainState
 N_TRAIN, N_TEST = 4, 2
 
 
-def _adam_state(opt_state):
-    # expdecay_adamw = chain(clip, chain(decay, chain(adam, schedule)))
-    return opt_state[1][1][0]
-
-
-def check_case2_epoch(dtype: str, rtol: float, jac_mode: str = "lowrank"):
-    jcfg = jcase2.Case2Config(n_exp_train=N_TRAIN, n_exp_test=N_TEST,
-                              dtype=dtype, max_steps=128, jac_mode=jac_mode)
-    jsetup = jcase2.build(jcfg)
+def check_epoch_vs_jax(jsetup, build_port, n_train: int, rtol: float):
+    """``jsetup``: the JAX case's setup; ``build_port(dataset)``: the port's
+    setup of the same configuration on the CPU. Returns the horizon masks
+    both epochs trained under."""
     jtrainer = jsetup.trainer
     epoch = jtrainer.epoch_fn()
     state1, _ = epoch(jtrainer.init(jsetup.init_params, seed=0))
     state2, jm = epoch(state1)
-    # the permutation the JAX epoch drew from its key (train/loop.py:119-122)
-    perm = np.asarray(jax.random.permutation(
-        jax.random.split(state1.key, 3)[1], N_TRAIN))
-    masks = jnp.ones((N_TRAIN, jcfg.datasize), jnp.dtype(dtype))
-    j_loss, j_grad = jax.value_and_grad(
-        lambda p: jnp.mean(jtrainer.loss_batch(p, jnp.asarray(perm), masks))
-    )(state1.params)
+    # the draws of the JAX epoch from its key (crnn_tpu/train/loop.py:119-123)
+    _, k_perm, k_hor = jax.random.split(state1.key, 3)
+    dtype = state1.params.dtype
+    perm = jax.random.permutation(k_perm, n_train)
+    masks = jtrainer._sample_masks(k_hor, n_train, dtype)
+    if jtrainer.loss_batch is not None:      # case2: the batch-major driver
+        def j_mean_loss(p):
+            return jnp.mean(jtrainer.loss_batch(p, perm, masks))
+    else:                                    # per-lane cases under vmap
+        def j_mean_loss(p):
+            return jnp.mean(jax.vmap(
+                lambda i, m: jtrainer.loss_i_exp(p, i, m))(perm, masks))
+    j_loss, j_grad = jax.value_and_grad(j_mean_loss)(state1.params)
 
     ds = jsetup.dataset
-    dataset = convert.dataset_from_jax(*(np.asarray(a) for a in (
-        ds.u0, ds.ys, ds.ys_clean, ds.ts, ds.yscale)), device="cpu")
-    setup = tcase2.build(tcase2.Case2Config(
-        n_exp_train=N_TRAIN, n_exp_test=N_TEST, dtype=dtype, device="cpu",
-        jac_mode=jac_mode), dataset=dataset)
-    adam = _adam_state(state1.opt_state)
+    dataset = convert.dataset_from_jax(
+        *(np.asarray(a) for a in (ds.u0, ds.ys, ds.ys_clean, ds.ts,
+                                  ds.yscale)),
+        success=np.asarray(ds.success), device="cpu")
+    assert torch.equal(dataset.success,
+                       torch.from_numpy(np.array(ds.success)))
+    setup = build_port(dataset)
     trainer = setup.trainer
     state = TrainState(
         convert.params_from_jax(np.asarray(state1.params), device="cpu"),
-        convert.opt_state_from_jax(np.asarray(adam.mu), np.asarray(adam.nu),
-                                   adam.count, device="cpu"),
+        convert.adam_state_from_optax(state1.opt_state, device="cpu"),
         1, torch.Generator().manual_seed(0))
+    perm_t = torch.from_numpy(np.array(perm))
+    masks_t = torch.from_numpy(np.array(masks))
 
-    loss, grad = trainer.value_and_grad(state.params, torch.tensor(perm))
+    loss, grad = trainer.value_and_grad(state.params, perm_t, masks_t)
     np.testing.assert_allclose(loss.item(), float(j_loss), rtol=rtol)
     np.testing.assert_allclose(grad.numpy(), np.asarray(j_grad), rtol=rtol,
                                atol=rtol * float(jnp.abs(j_grad).max()))
-    new_state, m = trainer.epoch(state, perm=torch.tensor(perm))
+    new_state, m = trainer.epoch(state, perm=perm_t, masks=masks_t)
     np.testing.assert_allclose(new_state.params.numpy(),
                                np.asarray(state2.params), rtol=rtol)
     np.testing.assert_allclose(m.loss_exp.numpy(), np.asarray(jm.loss_exp),
@@ -72,4 +80,22 @@ def check_case2_epoch(dtype: str, rtol: float, jac_mode: str = "lowrank"):
         np.testing.assert_allclose(getattr(m, name).item(),
                                    float(getattr(jm, name)), rtol=rtol)
     assert new_state.epoch == int(state2.epoch) == 2
-    assert new_state.opt_state.count == int(_adam_state(state2.opt_state).count)
+    adam2 = convert.adam_state_from_optax(state2.opt_state, device="cpu")
+    assert new_state.opt_state.count == adam2.count == 2
+    np.testing.assert_allclose(new_state.opt_state.nu.numpy(),
+                               adam2.nu.numpy(), rtol=rtol)
+    return masks_t
+
+
+def check_case2_epoch(dtype: str, rtol: float, jac_mode: str = "lowrank"):
+    jsetup = jcase2.build(jcase2.Case2Config(
+        n_exp_train=N_TRAIN, n_exp_test=N_TEST, dtype=dtype, max_steps=128,
+        jac_mode=jac_mode))
+
+    def build_port(dataset):
+        return tcase2.build(tcase2.Case2Config(
+            n_exp_train=N_TRAIN, n_exp_test=N_TEST, dtype=dtype,
+            device="cpu", jac_mode=jac_mode), dataset=dataset)
+
+    masks = check_epoch_vs_jax(jsetup, build_port, N_TRAIN, rtol)
+    assert bool((masks == 1).all())     # case2 has no stochastic horizon

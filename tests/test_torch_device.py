@@ -11,8 +11,10 @@ import torch
 
 import crnn_tpu_torch
 from crnn_tpu_torch import convert
-from crnn_tpu_torch.cases import case2
-from crnn_tpu_torch.transforms.p2vec import init_params_case2
+from crnn_tpu_torch.cases import case1, case2, robertson
+from crnn_tpu_torch.transforms.p2vec import (init_params_case1,
+                                             init_params_case2,
+                                             init_params_robertson)
 
 
 @pytest.fixture
@@ -35,8 +37,16 @@ def test_resolve_device():
     lambda: convert.params_from_jax(np.zeros(3)),
     lambda: convert.opt_state_from_jax(np.zeros(3), np.zeros(3), 0),
     lambda: convert.dataset_from_jax(*[np.zeros((2, 3))] * 5),
+    lambda: case1.build(case1.Case1Config()),
+    lambda: case1.main(["--epochs", "1"]),
+    lambda: init_params_case1(torch.Generator(), 5, 4),
+    lambda: robertson.build(robertson.RobertsonConfig()),
+    lambda: robertson.main(["--epochs", "1"]),
+    lambda: init_params_robertson(torch.Generator(), 3, 6),
 ], ids=["resolve_device", "build", "cli", "init_params", "params_from_jax",
-        "opt_state_from_jax", "dataset_from_jax"])
+        "opt_state_from_jax", "dataset_from_jax", "case1_build", "case1_cli",
+        "case1_init_params", "robertson_build", "robertson_cli",
+        "robertson_init_params"])
 def test_cuda_default_raises_without_a_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="cuda"):
         entry()
@@ -75,3 +85,36 @@ def test_case2_cli_on_cpu_writes_metrics(tmp_path):
     assert all(np.isfinite(r["loss_train"]) and np.isfinite(r["grad_norm"])
                for r in rows)
     assert np.isfinite(hist["best_val"]) and hist["n_skipped"] == 0
+
+
+@pytest.mark.parametrize("name", ["case1", "robertson"])
+def test_case1_and_robertson_run_on_cpu_and_write_metrics(tmp_path, name):
+    """Two guarded epochs of each per-lane case at a reduced size on the
+    CPU: the truth generated by the port, finite losses, one metrics line
+    per epoch, a non-increasing best val loss kept in float32."""
+    if name == "case1":
+        setup = case1.build(case1.Case1Config(
+            device="cpu", n_exp_train=3, n_exp_test=1, datasize=12,
+            max_steps=32))
+        shape = (4, 12, 5)
+    else:
+        setup = robertson.build(robertson.RobertsonConfig(
+            device="cpu", n_exp_train=3, n_exp_val=1, datasize=10,
+            batchsize=8, max_steps=48))
+        shape = (4, 10, 3)
+        u0 = setup.dataset.u0
+        assert torch.all(u0[:, 1] == 1e-8) and setup.dataset.ys.dtype == \
+            torch.float64
+        lhc = torch.sort(u0[:, 0] - 0.5).values   # a Latin hypercube / n
+        torch.testing.assert_close(lhc, torch.arange(1, 5,
+                                                     dtype=torch.float64) / 4)
+    assert setup.dataset.ys.shape == shape and bool(setup.dataset.success.all())
+    state, hist = case1.run_case(setup, n_epoch=2, out_dir=str(tmp_path),
+                                 log_every=0)
+    rows = [json.loads(line) for line in
+            (tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in rows] == [1, 2] and state.epoch == 2
+    assert all(np.isfinite(r["loss_train"]) and np.isfinite(r["grad_norm"])
+               for r in rows)
+    assert isinstance(hist["best_val"], np.float32) and hist["n_skipped"] == 0
+    assert hist["best_val"] == np.float32(min(r["loss_val"] for r in rows))

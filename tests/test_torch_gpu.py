@@ -1,6 +1,7 @@
 """The CUDA kernels of crnn_tpu_torch on the card, against their plain
-PyTorch versions, at the tolerances of chip_smoke.py. Every test carries the ``gpu`` marker and skips where no
-card is present. The file imports no JAX, so on the card's machine (no
+PyTorch versions, at the tolerances of chip_smoke.py, and one case1 and one
+robertson epoch on the kernel path. Every test carries the ``gpu`` marker
+and skips where no card is present. The file imports no JAX, so on the card's machine (no
 JAX there) it runs without the repository's conftest:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q -p no:cacheprovider
@@ -182,3 +183,141 @@ def test_rb23_solve_wrapper_checks_its_inputs(cuda_device):
         rk.arrh_rb23_solve(torch.ones((2, 10), device=cuda_device),
                            torch.ones((10, 3), device=cuda_device), w.w_b,
                            torch.ones((9, 3), device=cuda_device), **consts)
+
+
+# ---- kernels 4-5: the isothermal RHS and its value+Jacobian ---------------
+
+def _iso_inputs(b, dtype, device, ns=5, nr=4, seed=0):
+    """Isothermal inputs with the edge rows: below, at and above the
+    bounds, 0, NaN, +-inf, and y = 1e30, whose rates (with ub = inf) are
+    far above exp(32) and capped. Elsewhere |z| stays below ~16: an f32
+    exponent z carries ulp(z) of rounding into exp(z) (1.9e-6 relative at
+    |z| ~ 30), which a 2e-6 gate would judge instead of the kernel. w_out
+    is of one sign, so that du and J are sums without cancellation (at the
+    capped row, terms of ~1e14 of both signs would leave their f32 rounding
+    in a difference 100x smaller)."""
+    rng = np.random.default_rng(seed)
+    y = np.abs(rng.normal(size=(b, ns))) + 0.05
+    y[0, 0], y[1, 1], y[2, 2], y[3, 3] = 1e-9, LB, 50.0, 0.0
+    y[4, 0], y[5, 1], y[6, 2] = np.nan, np.inf, -np.inf
+    y[7, :] = 1e30
+    arrays = (y, 0.5 * np.abs(rng.normal(size=(ns, nr))),
+              rng.normal(size=(nr,)) + 3.0, np.abs(rng.normal(size=(ns, nr))))
+    return [torch.from_numpy(a.astype(dtype)).to(device) for a in arrays]
+
+
+def _same_nonfinite_and_close_per_component(out, ref, tol):
+    """NaN and inf positions exact; finite values within ``tol`` of each
+    output component's largest finite |value| over the lanes (an entry of J
+    is a sum of terms of both signs, so an elementwise f32 rtol would judge
+    its cancellation, not the kernel)."""
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(torch.isfinite(out), fin)
+    assert torch.equal(out[~fin & ~torch.isnan(ref)],
+                       ref[~fin & ~torch.isnan(ref)])
+    zero = torch.zeros_like(ref)
+    scale = torch.where(fin, ref.abs(), zero).amax(dim=0)
+    diff = torch.where(fin, (out - ref).abs(), zero)
+    assert bool((diff <= tol * scale).all()), float((diff - tol * scale).max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-6), (np.float64, 1e-12)])
+@pytest.mark.parametrize("batch", [20, 30, 4099])
+@pytest.mark.parametrize("ub", [UB, np.inf])
+def test_crnn_kernels_match_plain_versions(cuda_device, dtype, tol, batch, ub):
+    args = _iso_inputs(batch, dtype, cuda_device)
+    before = (tk.crnn_rhs_batched.launches, tk.crnn_rhs_jac_batched.launches)
+    du = tk.crnn_rhs_batched(*args, LB, ub)
+    du2, jac = tk.crnn_rhs_jac_batched(*args, LB, ub)
+    torch.cuda.synchronize()
+    assert (tk.crnn_rhs_batched.launches,
+            tk.crnn_rhs_jac_batched.launches) == (before[0] + 1, before[1] + 1)
+    assert jac.shape == (batch, 5, 5)
+    du_ref, jac_ref = tk.crnn_rhs_jac_batched_reference(*args, LB, ub)
+    for out, ref in ((du, tk.crnn_rhs_batched_reference(*args, LB, ub)),
+                     (du2, du_ref), (jac, jac_ref)):
+        _same_nonfinite_and_close_per_component(out, ref, tol)
+
+
+def test_crnn_ops_gradients_on_card(cuda_device):
+    """Kernel forward and plain backward of both isothermal ops on the card
+    equal autograd of the plain versions (f64, ub = inf)."""
+    args = [t.nan_to_num(nan=1.0, posinf=2.0, neginf=0.5).requires_grad_(True)
+            for t in _iso_inputs(30, np.float64, cuda_device)]
+    rhs_op = tk.make_crnn_rhs_op(LB, np.inf)
+    pair_op = tk.make_crnn_rhs_jac_op(LB, np.inf)
+    for op, ref in ((rhs_op, tk.crnn_rhs_batched_reference),
+                    (pair_op, tk.crnn_rhs_jac_batched_reference)):
+        out = op(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        g = [torch.randn(t.shape, dtype=torch.float64, device=cuda_device)
+             for t in outs]
+        got = torch.autograd.grad(outs, args, g)
+        want_out = ref(*args, LB, np.inf)
+        want = torch.autograd.grad(want_out if isinstance(want_out, tuple)
+                                   else (want_out,), args, g)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def test_crnn_wrappers_check_their_inputs(cuda_device):
+    y, w_in, w_b, w_out = _iso_inputs(30, np.float32, cuda_device)
+    for fn in (tk.crnn_rhs_batched, tk.crnn_rhs_jac_batched):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(y.t().contiguous().t(), w_in, w_b, w_out, LB, UB)
+        with pytest.raises(ValueError, match="shapes"):
+            fn(torch.cat([y, y[:, :1]], dim=1), w_in, w_b, w_out, LB, UB)
+        with pytest.raises(TypeError):
+            fn(y.half(), w_in.half(), w_b.half(), w_out.half(), LB, UB)
+
+
+@pytest.mark.parametrize("name", ["case1", "robertson"])
+def test_per_lane_case_epoch_on_kernel_path(cuda_device, name):
+    """One epoch of case1 (f32, Tsit5) and of robertson (f64,
+    Rosenbrock23) at a reduced size on the card: the kernel path launches
+    its kernels, and agrees with the plain path on the same params, perm
+    and masks: case1's f32 eval losses at the initial params at rtol 1e-4
+    (the f32 gradient follows rounding, so an epoch's update is not
+    compared in f32); robertson's f64 epoch (gradient, eval losses) at rtol
+    1e-9."""
+    from crnn_tpu_torch.cases import case1, robertson
+
+    if name == "case1":
+        mod, kw = case1, dict(n_exp_train=6, n_exp_test=2, datasize=30)
+        cfg = case1.Case1Config
+    else:
+        mod, kw = robertson, dict(n_exp_train=6, n_exp_val=2, datasize=20,
+                                  batchsize=16)
+        cfg = robertson.RobertsonConfig
+    setup = mod.build(cfg(**kw))
+    plain = mod.build(cfg(rhs_plain=True, **kw), dataset=setup.dataset)
+    trainer = setup.trainer
+    gen = torch.Generator().manual_seed(0)
+    perm = torch.randperm(trainer.n_exp_train, generator=gen)
+    masks = trainer.sample_masks(gen, perm.shape[0], setup.init_params.dtype)
+    tk.crnn_rhs_batched.launches = tk.crnn_rhs_jac_batched.launches = 0
+    state, m = trainer.epoch(trainer.init(setup.init_params), perm, masks)
+    torch.cuda.synchronize()
+    assert tk.crnn_rhs_batched.launches > 0
+    assert (tk.crnn_rhs_jac_batched.launches > 0) == (name == "robertson")
+    before = (tk.crnn_rhs_batched.launches, tk.crnn_rhs_jac_batched.launches)
+    _, mp = plain.trainer.epoch(plain.trainer.init(plain.init_params), perm,
+                                masks)
+    assert (tk.crnn_rhs_batched.launches,
+            tk.crnn_rhs_jac_batched.launches) == before
+    assert bool(torch.isfinite(m.loss_exp).all()) and state.epoch == 1
+    if name == "case1":
+        idx = torch.arange(trainer.n_exp, device=cuda_device)
+        ones = torch.ones((trainer.n_exp, trainer.n_save), device=cuda_device)
+        with torch.no_grad():
+            got = trainer.loss_batch_eval(setup.init_params, idx, ones)
+            want = plain.trainer.loss_batch_eval(plain.init_params, idx, ones)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    else:
+        torch.testing.assert_close(m.loss_exp, mp.loss_exp, rtol=1e-9, atol=0)
+        _, g = trainer.value_and_grad(setup.init_params, perm.cuda(), masks)
+        _, gp = plain.trainer.value_and_grad(plain.init_params, perm.cuda(),
+                                             masks)
+        torch.testing.assert_close(g, gp, rtol=1e-9,
+                                   atol=1e-9 * float(gp.abs().max()))

@@ -178,3 +178,137 @@ def test_rhs_jac_op_gradients_match_jax_vjp():
         tk.arrhenius_rhs_jac_batched_reference(*inputs, LB, UB)[1].sum(),
         inputs[1])
     torch.testing.assert_close(g_w, g_ref, rtol=1e-12, atol=1e-12)
+
+
+# ---- kernels 4-5: the isothermal RHS and its value+Jacobian ---------------
+
+def _iso_inputs(b=16, ns=5, nr=4, dtype=np.float64, seed=0, edges=False,
+                ub=UB):
+    """Isothermal inputs y (B, ns). With ``edges`` the first rows hold
+    values below, at and above the bounds, 0, and a row whose rates exceed
+    exp(32) (every order positive on a large y, a large bias); w_out is then
+    of one sign, so that du and J are sums without cancellation and a
+    relative tolerance is meaningful at ~1e13. The orders are 0.5|N(0, 1)|,
+    the size the case1 and robertson inits give (at most 0.77): an f32
+    exponent z carries |z| * eps of rounding into exp(z), so orders of ~2 on
+    log(lb) = -11.5 would put a one-ulp difference of summation order at
+    2e-6 of the rate."""
+    rng = np.random.default_rng(seed)
+    y = np.abs(rng.normal(size=(b, ns))) + 0.05
+    w_in = 0.5 * np.abs(rng.normal(size=(ns, nr)))
+    w_b = rng.normal(size=(nr,))
+    w_out = rng.normal(size=(ns, nr))
+    if edges:
+        y[0, 0], y[1, 1], y[2, 2], y[3, 3] = 1e-9, LB, 50.0, 0.0
+        y[4, :] = 1e6
+        y[5, 0] = UB
+        w_b[0] = 40.0
+        w_out = np.abs(w_out)
+    return tuple(a.astype(dtype) for a in (y, w_in, w_b, w_out)), ub
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("edges", [False, True])
+@pytest.mark.parametrize("ub", [UB, np.inf])
+def test_plain_crnn_rhs_matches_jax_reference_and_interpret_kernel(dtype, edges,
+                                                                   ub):
+    arrays, ub = _iso_inputs(dtype=dtype, edges=edges, ub=ub)
+    ref = np.asarray(jk.crnn_rhs_batched_reference(
+        *map(jnp.asarray, arrays), LB, ub))
+    out = tk.crnn_rhs_batched(*_t(*arrays), LB, ub).numpy()
+    assert out.dtype == dtype
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+    if dtype == np.float32:  # the Pallas kernel accumulates in f32 only
+        pallas = np.asarray(jk.crnn_rhs_batched(
+            *map(jnp.asarray, arrays), LB, ub, force="interpret"))
+        np.testing.assert_allclose(out, pallas, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("edges", [False, True])
+@pytest.mark.parametrize("ub", [UB, np.inf])
+def test_plain_crnn_rhs_jac_matches_jax_reference_and_interpret_kernel(
+        dtype, edges, ub):
+    arrays, ub = _iso_inputs(dtype=dtype, edges=edges, seed=2, ub=ub)
+    ref = jk.crnn_rhs_jac_batched_reference(*map(jnp.asarray, arrays), LB, ub)
+    got = tk.crnn_rhs_jac_batched(*_t(*arrays), LB, ub)
+    tol = TOL[dtype]
+    assert got[1].shape == (16, 5, 5)
+    for g, r in zip(got, ref):
+        assert g.numpy().dtype == dtype
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=tol, atol=tol)
+    if dtype == np.float32:  # the Pallas kernel accumulates in f32 only
+        pallas = jk.crnn_rhs_jac_batched(*map(jnp.asarray, arrays), LB, ub,
+                                         force="interpret")
+        for g, k in zip(got, pallas):
+            np.testing.assert_allclose(g.numpy(), np.asarray(k), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.parametrize("ub", [UB, np.inf])
+def test_plain_crnn_pair_propagates_nan_like_jax(ub):
+    (y, w_in, w_b, w_out), ub = _iso_inputs(seed=3, ub=ub)
+    y[0, 0], y[1, 1], y[2, 2], y[3, 3] = np.nan, np.inf, -np.inf, 0.0
+    args_j = [jnp.asarray(a) for a in (y, w_in, w_b, w_out)]
+    want = (jk.crnn_rhs_batched_reference(*args_j, LB, ub),
+            *jk.crnn_rhs_jac_batched_reference(*args_j, LB, ub))
+    args_t = _t(y, w_in, w_b, w_out)
+    got = (tk.crnn_rhs_batched(*args_t, LB, ub),
+           *tk.crnn_rhs_jac_batched(*args_t, LB, ub))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.isnan(g.numpy()),
+                                      np.isnan(np.asarray(w)))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_cpu_crnn_wrappers_use_plain_versions_without_launching():
+    before = (tk.crnn_rhs_batched.launches, tk.crnn_rhs_jac_batched.launches)
+    args = _t(*_iso_inputs()[0])
+    assert torch.equal(tk.crnn_rhs_batched(*args, LB, UB),
+                       tk.crnn_rhs_batched_reference(*args, LB, UB))
+    got = tk.crnn_rhs_jac_batched(*args, LB, UB)
+    want = tk.crnn_rhs_jac_batched_reference(*args, LB, UB)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (tk.crnn_rhs_batched.launches,
+            tk.crnn_rhs_jac_batched.launches) == before
+    meta = [t.to("meta") for t in args]
+    for fn in (tk.crnn_rhs_batched, tk.crnn_rhs_jac_batched):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*meta, LB, UB)
+
+
+@pytest.mark.parametrize("ub", [UB, np.inf])
+def test_crnn_ops_gradients_match_jax_vjp(ub):
+    (y, w_in, w_b, w_out), ub = _iso_inputs(b=8, seed=4, ub=ub)
+    rng = np.random.default_rng(5)
+    g_du = rng.normal(size=y.shape)
+    g_jac = rng.normal(size=(y.shape[0], y.shape[1], y.shape[1]))
+    args_j = [jnp.asarray(a) for a in (y, w_in, w_b, w_out)]
+    _, vjp = jax.vjp(lambda *a: jk.crnn_rhs_batched_reference(*a, LB, ub),
+                     *args_j)
+    want_rhs = vjp(jnp.asarray(g_du))
+    _, vjp = jax.vjp(lambda *a: jk.crnn_rhs_jac_batched_reference(*a, LB, ub),
+                     *args_j)
+    want_pair = vjp((jnp.asarray(g_du), jnp.asarray(g_jac)))
+    want_jac_only = vjp((jnp.zeros_like(jnp.asarray(g_du)),
+                         jnp.asarray(g_jac)))
+
+    inputs = [t.requires_grad_(True) for t in _t(y, w_in, w_b, w_out)]
+    rhs_op = tk.make_crnn_rhs_op(LB, ub)
+    pair_op = tk.make_crnn_rhs_jac_op(LB, ub)
+    got_rhs = torch.autograd.grad(rhs_op(*inputs), inputs,
+                                  torch.from_numpy(g_du))
+    got_pair = torch.autograd.grad(pair_op(*inputs), inputs,
+                                   (torch.from_numpy(g_du),
+                                    torch.from_numpy(g_jac)))
+    # J alone, as the Rosenbrock23 W-matrix uses it: du gets zeros
+    got_jac_only = torch.autograd.grad(pair_op(*inputs)[1], inputs,
+                                       torch.from_numpy(g_jac))
+    for got, want in ((got_rhs, want_rhs), (got_pair, want_pair),
+                      (got_jac_only, want_jac_only)):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
+                                       atol=1e-12)
+    assert torch.autograd.gradcheck(rhs_op, inputs)
