@@ -42,12 +42,13 @@ Phases, each printed with the seconds it took:
    interleaved rounds of 10 calls each (median), as bench.py times its
    eval pair;
 7. kernels 4-5: the isothermal RHS and its value+Jacobian against their
-   plain versions at B in {20, 30, 4099, 65536}, at case1's shapes (ns=5,
-   nr=4) and robertson's (ns=3, nr=6), f32 and f64, ub = 10 and ub = inf,
-   on the edge inputs of phase 2 and at the exp cap: NaN and inf positions
-   exact, finite values within 2e-6 (f32) or 1e-12 (f64) of each output
-   component's largest value; then device and eager times against the
-   plain versions';
+   plain versions at B in {1, 20, 21, 30, 33, 4099, 65536} (ragged last
+   tiles beside the main path's B), at case1's shapes (ns=5, nr=4),
+   robertson's (ns=3, nr=6) and the caps (32, 32), (1, 32), (32, 1), f32
+   and f64, ub = 10 and ub = inf, on the edge inputs of phase 2 and at the
+   exp cap: NaN and inf positions exact, finite values within 2e-6 (f32)
+   or 1e-12 (f64) of each output component's largest value; then device
+   and eager times against the plain versions' and the launch floor;
 8. case1: 3 guarded epochs of Case1Config() (f32, Tsit5) through run_case,
    counters set to 0 just before and read just after (kernel 4 launches;
    finite, non-increasing training loss); the kernel path against the
@@ -59,6 +60,10 @@ Phases, each printed with the seconds it took:
    and read just after (kernel 4 and kernel 5 launches); the kernel path
    against the plain path on the same params, perm and masks over a whole
    epoch (loss, grad, eval losses, params) at rtol 1e-9.
+
+Every kernel's row carries ``floor_ms``: the device time of one trivial
+PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
+kernel is, which says how much of the row's ``ms`` is the launch itself.
 
 The last lines are the card (nvidia-smi), one JSON line with every
 kernel's numbers, and the result line
@@ -88,6 +93,7 @@ _HBM_BYTES_PER_S = 3.35e12
 _PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 _TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 1e-12)}
 _EPOCH_RTOL = 1e-4
+_Z_ORDERS = 2.0
 
 
 def fail(msg: str):
@@ -143,6 +149,13 @@ def device_ms(fn, n: int = 200) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (5 * n)
+
+
+def floor_ms(y: torch.Tensor) -> float:
+    """The launch floor of a row: device ms of one trivial kernel on ``y``
+    (``torch.neg`` into a buffer), timed by ``device_ms``."""
+    buf = torch.empty_like(y)
+    return device_ms(lambda: torch.neg(y, out=buf))
 
 
 def eager_ms(fn, n: int = 500, warmup: int = 20) -> float:
@@ -436,6 +449,7 @@ def check_rhs_jac_kernel(gen) -> dict:
             "plain_eager": eager_ms(
                 lambda: arrhenius_rhs_jac_batched_reference(
                     y, w_in, w_b, w_out, lb, ub)),
+            "floor_device": floor_ms(y),
         }
         bound, bound_by = rhs_jac_bound_ms(batch, 6, 3, torch.float32)
         print(f"  arrhenius_rhs_jac B={batch} f32 ms/call: " + ", ".join(
@@ -446,7 +460,7 @@ def check_rhs_jac_kernel(gen) -> dict:
                        plain_ms=times["plain_device"],
                        ms_eager=times["kernel_eager"],
                        plain_ms_eager=times["plain_eager"], bound_ms=bound,
-                       bound_by=bound_by)
+                       bound_by=bound_by, floor_ms=times["floor_device"])
     return row
 
 
@@ -597,7 +611,8 @@ def check_solve_kernel(setup, gen) -> dict:
 
     times = {"kernel_device": device_ms(kernel, n=20),
              "kernel_eager": eager_ms(kernel, n=50, warmup=5),
-             "plain_eager": eager_ms(plain, n=5, warmup=2)}
+             "plain_eager": eager_ms(plain, n=5, warmup=2),
+             "floor_device": floor_ms(u0)}
     bound, bound_by = rb23_bound_ms(n_steps, cfg.ns, cfg.nr, torch.float32)
     longest = int(n_steps.max())
     print(f"  arrh_rb23_solve B=30 f32 ms/call: " + ", ".join(
@@ -611,7 +626,8 @@ def check_solve_kernel(setup, gen) -> dict:
           "still runs, so it cannot be captured in a CUDA graph")
     row.update(ms=times["kernel_device"], plain_ms=times["plain_eager"],
                ms_eager=times["kernel_eager"], bound_ms=bound,
-               bound_by=bound_by, longest_lane_steps=longest)
+               bound_by=bound_by, longest_lane_steps=longest,
+               floor_ms=times["floor_device"])
     return row
 
 
@@ -722,14 +738,34 @@ def run_fused_eval(setup, params) -> dict:
     return {"launches": launches, **pair}
 
 
-def crnn_inputs(batch, dtype, gen, shape, edges):
-    """Isothermal RHS inputs on the card at ``shape``: 'case1' (ns=5, nr=4,
-    weights from the case1 init, lb 1e-5) or 'robertson' (ns=3, nr=6,
-    weights from the robertson init, lb 1e-8). ``edges``: False, True (the
-    first rows carry phase 2's edge values) or 'exp-cap' (edge rows and a
-    bias of +60 that lifts every rate above exp(32), w_out of one sign so
-    that du and J are sums without cancellation)."""
-    from crnn_tpu_torch.transforms.p2vec import (init_params_case1,
+def crnn_inputs(batch, dtype, gen, shape, edges, device="cuda"):
+    """Isothermal RHS inputs at ``shape``: 'case1' (ns=5, nr=4, weights from
+    the case1 init, lb 1e-5), 'robertson' (ns=3, nr=6, weights from the
+    robertson init, lb 1e-8) or (ns, nr) (orders 0.5|N(0, 1)|/sqrt(ns),
+    bias N(0, 1), w_out |N(0, 1)|, lb 1e-5). ``edges``: False, True (the
+    first rows carry phase 2's edge values, as many as the batch has rows,
+    an edge's species index wrapping at ns) or 'exp-cap' (edge rows and a
+    bias of +60 that lifts every rate above exp(32)).
+
+    The gate holds each output component to a few ulps of its largest value
+    over the lanes (at B = 1, of the lane's own value), so the inputs keep
+    two roundings of the same sums from differing by more than that:
+    - the orders' share of every finite exponent, sum_i w_in[i, r] log x_i,
+      lies within ``_Z_ORDERS`` (the orders shrink where it would not), and
+      the bias keeps the exponent within 16: in f32 one ulp of z moves
+      exp(z) by 1.9e-6 for |z| in [16, 32), the whole gate, and a 32-term
+      sum of partial sums up to 8 rounds z by ~1e-6;
+    - in f32, w_out is of one sign, so that du and J are sums without
+      cancellation (case1's stoichiometry has both signs, and kernel and
+      plain version associate J's triple products differently); f64 keeps
+      it, where a cancellation of 1e3 still fits its gate;
+    - with 'exp-cap', the bias of +60 then lifts every finite exponent at
+      least 40 above the cap, and w_out is of one sign at both dtypes: a
+      sum of terms of ~1e14 of both signs would leave its rounding in a
+      far smaller difference."""
+    from crnn_tpu_torch import clip
+    from crnn_tpu_torch.transforms.p2vec import (CRNNWeights,
+                                                 init_params_case1,
                                                  init_params_robertson,
                                                  p2vec_case1, p2vec_robertson)
 
@@ -738,37 +774,55 @@ def crnn_inputs(batch, dtype, gen, shape, edges):
         w = p2vec_case1(init_params_case1(gen, ns, nr, dtype=dtype,
                                           device="cpu"), ns, nr)
         y = torch.rand((batch, ns), generator=gen, dtype=dtype) * 1.2
-    else:
+    elif shape == "robertson":
         ns, nr, lb = 3, 6, 1e-8
         w = p2vec_robertson(init_params_robertson(gen, ns, nr, dtype=dtype,
                                                   device="cpu"), ns, nr)
         y = torch.rand((batch, ns), generator=gen, dtype=dtype) * 2.0 + 0.5
         y[:, 1] = y[:, 1] * 1e-4
-    w_b, w_out = w.w_b, w.w_out
+    else:
+        (ns, nr), lb = shape, 1e-5
+        w = CRNNWeights(
+            w_in=torch.randn((ns, nr), generator=gen, dtype=dtype).abs()
+            * (0.5 / ns ** 0.5),
+            w_b=torch.randn((nr,), generator=gen, dtype=dtype),
+            w_out=torch.randn((ns, nr), generator=gen, dtype=dtype).abs())
+        y = torch.rand((batch, ns), generator=gen, dtype=dtype) * 1.2
+    w_in, w_b, w_out = w
     if edges:
         lb_t = torch.tensor(lb, dtype=dtype)
         for row, (col, val) in enumerate([
                 (0, 1e-9), (0, lb_t), (1, 50.0), (2, 0.0), (0, math.nan),
-                (1, math.inf), (2, -math.inf), (1, -1.0), (0, 10.0)]):
-            y[row, col] = val
+                (1, math.inf), (2, -math.inf), (1, -1.0), (0, 10.0)][:batch]):
+            y[row, col % ns] = val
+    z = torch.cat([torch.log(clip(y, lb, ub)) @ w_in
+                   for ub in (10.0, math.inf)])
+    z_in = float(z[torch.isfinite(z)].abs().max())
+    if z_in > _Z_ORDERS:
+        w_in = w_in * (_Z_ORDERS / z_in)
+    assert float(w_b.abs().max()) + _Z_ORDERS <= 16.0
+    if dtype == torch.float32 or edges == "exp-cap":
+        w_out = w_out.abs()
     if edges == "exp-cap":
-        w_b, w_out = w_b + 60.0, w_out.abs()
-    dev = torch.device("cuda")
-    return [t.to(dev).contiguous() for t in (y, w.w_in, w_b, w_out)], lb
+        w_b = w_b + 60.0
+    return [t.to(device).contiguous() for t in (y, w_in, w_b, w_out)], lb
 
 
 def compare_components(out, ref, tol):
-    """(ok, max_abs_err over finite entries): NaN and inf positions must
-    match exactly, finite values within ``tol`` of each output component's
-    largest finite |value| over the lanes."""
+    """(ok, max_abs_err over finite entries, largest error over its
+    component's scale): NaN and inf positions must match exactly, finite
+    values within ``tol`` of each output component's largest finite |value|
+    over the lanes."""
     nan_o, nan_r = torch.isnan(out), torch.isnan(ref)
     fin_r = torch.isfinite(ref)
     if not (torch.equal(nan_o, nan_r) and torch.equal(torch.isfinite(out), fin_r)
             and torch.equal(out[~fin_r & ~nan_r], ref[~fin_r & ~nan_r])):
-        return False, math.inf
+        return False, math.inf, math.inf
     scale = torch.where(fin_r, ref.abs(), torch.zeros_like(ref)).amax(dim=0)
     diff = torch.where(fin_r, (out - ref).abs(), torch.zeros_like(ref))
-    return bool((diff <= tol * scale).all()), float(diff.max())
+    rel = torch.where(diff > 0, diff / scale, torch.zeros_like(diff))
+    return (bool((diff <= tol * scale).all()), float(diff.max()),
+            float(rel.max()))
 
 
 def crnn_bound_ms(batch, ns, nr, dtype, jac):
@@ -792,15 +846,16 @@ def check_crnn_kernels(gen):
     B=20), kernel 5 at robertson's (f64, B=20)."""
     from crnn_tpu_torch.ops.crnn_kernels import (
         crnn_rhs_batched, crnn_rhs_batched_reference, crnn_rhs_jac_batched,
-        crnn_rhs_jac_batched_reference)
+        crnn_rhs_jac_batched_reference, tile_geometry)
 
     tol = {torch.float32: 2e-6, torch.float64: 1e-12}
     rhs_row, jac_row = {}, {}
     row_of = {("crnn_rhs", "case1"): rhs_row,
               ("crnn_rhs_jac", "robertson"): jac_row}
-    for shape in ("case1", "robertson"):
+    worst = {}
+    for shape in ("case1", "robertson", (32, 32), (1, 32), (32, 1)):
         for dtype in (torch.float32, torch.float64):
-            for batch in (20, 30, 4099, 65536):
+            for batch in (1, 20, 21, 30, 33, 4099, 65536):
                 for edges in (False, True, "exp-cap"):
                     args, lb = crnn_inputs(batch, dtype, gen, shape, edges)
                     for ub in (10.0, math.inf):
@@ -809,7 +864,7 @@ def check_crnn_kernels(gen):
                         refs = (crnn_rhs_batched_reference(*args, lb, ub),
                                 *crnn_rhs_jac_batched_reference(*args, lb, ub))
                         torch.cuda.synchronize()
-                        (ok4, e4), (ok5a, e5a), (ok5b, e5b) = (
+                        (ok4, e4, r4), (ok5a, e5a, r5a), (ok5b, e5b, r5b) = (
                             compare_components(o, r, tol[dtype])
                             for o, r in zip(outs, refs))
                         if not (ok4 and ok5a and ok5b):
@@ -817,13 +872,23 @@ def check_crnn_kernels(gen):
                                  f"versions: {shape} B={batch} {dtype} "
                                  f"edges={edges} ub={ub}: du {e4:.3e}, "
                                  f"(du, J) {e5a:.3e} {e5b:.3e}")
+                        key = (shape, dtype)
+                        worst[key] = max(worst.get(key, 0.0), r4, r5a, r5b)
                         if batch == 20 and not edges and ub == 10.0:
                             if (shape, dtype) == ("case1", torch.float32):
                                 rhs_row["max_abs_err"] = e4
                             if (shape, dtype) == ("robertson", torch.float64):
                                 jac_row["max_abs_err"] = max(e5a, e5b)
+                ns, nr = args[3].shape
+                geo = [tile_geometry(batch, ns, nr, args[0].element_size(),
+                                     jac) for jac in (False, True)]
                 print(f"  crnn_rhs/crnn_rhs_jac {shape} {str(dtype)[6:]} "
-                      f"B={batch}: plain, edges, exp cap; ub 10 and inf: ok")
+                      f"B={batch}: plain, edges, exp cap; ub 10 and inf: ok "
+                      f"(lanes, threads: {geo[0]}, {geo[1]})")
+    for (shape, dtype), err in worst.items():
+        print(f"  crnn kernels {shape} {str(dtype)[6:]}: largest error over "
+              f"its component's largest value, over B, inputs and ub "
+              f"{err:.3e} (gate {tol[dtype]:.0e})")
     for shape, dtype in (("case1", torch.float32),
                          ("robertson", torch.float64)):
         ub = 10.0 if shape == "case1" else math.inf
@@ -831,6 +896,7 @@ def check_crnn_kernels(gen):
             (y, w_in, w_b, w_out), lb = crnn_inputs(batch, dtype, gen, shape,
                                                     False)
             ns, nr = w_out.shape
+            floor = floor_ms(y)
             fns = {"crnn_rhs": (crnn_rhs_batched, crnn_rhs_batched_reference),
                    "crnn_rhs_jac": (crnn_rhs_jac_batched,
                                     crnn_rhs_jac_batched_reference)}
@@ -844,6 +910,7 @@ def check_crnn_kernels(gen):
                         lambda: kernel(y, w_in, w_b, w_out, lb, ub)),
                     "plain_eager": eager_ms(
                         lambda: plain(y, w_in, w_b, w_out, lb, ub)),
+                    "floor_device": floor,
                 }
                 jac = name == "crnn_rhs_jac"
                 bound, bound_by = crnn_bound_ms(batch, ns, nr, dtype, jac)
@@ -857,8 +924,8 @@ def check_crnn_kernels(gen):
                         plain_ms=times["plain_device"],
                         ms_eager=times["kernel_eager"],
                         plain_ms_eager=times["plain_eager"], bound_ms=bound,
-                        bound_by=bound_by, timed_at=f"{shape} B=20 "
-                        f"{str(dtype)[6:]}")
+                        bound_by=bound_by, floor_ms=floor,
+                        timed_at=f"{shape} B=20 {str(dtype)[6:]}")
     return rhs_row, jac_row
 
 
@@ -1090,6 +1157,7 @@ def main() -> int:
                     y, w_in, w_b, w_out, lb, ub)),
                 "plain_eager": eager_ms(lambda: arrhenius_rhs_batched_reference(
                     y, w_in, w_b, w_out, lb, ub)),
+                "floor_device": floor_ms(y),
             }
             bound, bound_by = arrhenius_bound_ms(batch, 6, 3, torch.float32)
             print(f"  arrhenius_rhs B={batch} f32 ms/call: " + ", ".join(
@@ -1100,7 +1168,7 @@ def main() -> int:
                     ms=times["kernel_device"], plain_ms=times["plain_device"],
                     ms_eager=times["kernel_eager"],
                     plain_ms_eager=times["plain_eager"], bound_ms=bound,
-                    bound_by=bound_by)
+                    bound_by=bound_by, floor_ms=times["floor_device"])
 
     with phase("3 slice"):
         row, setup, trained = run_slice("cuda", gen)

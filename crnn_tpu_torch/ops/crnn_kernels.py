@@ -23,7 +23,9 @@ torch, as they are XLA in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -34,6 +36,9 @@ _EXP_CAP = 32.0
 _INV_R_KCAL = -1.0 / 1.98720425864083e-3
 _MAX_NS = 32
 _MAX_NR = 32
+_SMEM_BYTES = 48 * 1024
+_TILE_ITEMS = 512
+_TILE_THREADS = 256
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _SYMBOL = {"arrhenius_rhs": "arrh_rhs", "arrhenius_rhs_jac": "arrh_rhs_jac",
            "crnn_rhs": "crnn_rhs", "crnn_rhs_jac": "crnn_rhs_jac"}
@@ -99,16 +104,40 @@ def arrhenius_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb, ub,
     return du, torch.cat([top, bottom], dim=1)
 
 
-def _kernel_fn(name, dtype, n_ptr):
-    lib = _build.load(name)
-    fn = getattr(lib, f"{_SYMBOL[name]}_{SUFFIX[dtype]}")
-    if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * n_ptr + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-            ctypes.c_double, ctypes.c_double, ptr]
-        fn.restype = ctypes.c_int
+@functools.cache
+def _kernel_fn(name, dtype, n_ptr, n_geometry):
+    """The ctypes function of kernel ``name`` for ``dtype``, bound once:
+    ``n_ptr`` pointers, the shared scalars, ``n_geometry`` launch-geometry
+    ints (lanes, threads) and the stream."""
+    fn = getattr(_build.load(name), f"{_SYMBOL[name]}_{SUFFIX[dtype]}")
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr] * n_ptr + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, ctypes.c_double] + [ctypes.c_int] * n_geometry + [ptr]
+    fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=256)
+def tile_geometry(batch: int, ns: int, nr: int, itemsize: int, jac: bool):
+    """(lanes, threads) of the flat lane tile of the isothermal kernels
+    (``csrc/crnn_rhs.cu``, and ``csrc/crnn_rhs_jac.cu`` with ``jac``). A
+    block owns ``lanes`` consecutive lanes and loops over its items in three
+    phases: (lane, species), (lane, reaction), and the outputs, (lane,
+    species) and with ``jac`` also (lane, i, j). The lanes give a block at
+    most ``_TILE_ITEMS`` items in its largest phase (one lane at least) and
+    keep its shared memory (the weights, 2 ns nr + nr values, then ns + nr
+    values a lane, ns more with ``jac``) within 48 KB without an opt-in; the
+    threads, a multiple of 32 and at most ``_TILE_THREADS``, cover the
+    largest phase in one or a few passes. The launcher derives the shared
+    bytes and the grid, ceil(B / lanes) blocks, and refuses a layout above
+    48 KB."""
+    per_lane = max(ns, nr, ns * ns if jac else 0)
+    lane_bytes = itemsize * (ns + nr + (ns if jac else 0))
+    weight_bytes = itemsize * (2 * ns * nr + nr)
+    lanes = max(1, min(batch, _TILE_ITEMS // per_lane,
+                       (_SMEM_BYTES - weight_bytes) // lane_bytes))
+    return lanes, min(_TILE_THREADS, -(-lanes * per_lane // 32) * 32)
 
 
 def check_kernel_inputs(who, y, w_in, w_b, w_out, max_ns=_MAX_NS,
@@ -140,20 +169,27 @@ def check_kernel_inputs(who, y, w_in, w_b, w_out, max_ns=_MAX_NS,
     return ns, nr
 
 
-def _launch(name, y, weights, outs, lb, ub, exp_cap):
-    """Launch ``name`` on y, the kernel's weight operands (each made
-    contiguous, w_out last) and ``outs`` on the current stream; raise on a
-    CUDA error."""
+def _launch(name, y, weights, outs, lb, ub, exp_cap, geometry=()):
+    """Launch ``name`` on y, the kernel's weight operands (w_out last, each
+    made contiguous) and ``outs`` on the current stream, with the launch
+    ``geometry`` where the kernel takes one. Returns False without a launch
+    for an empty batch; raises on a CUDA error."""
+    batch = y.shape[0]
+    if batch == 0:
+        return False
     ns, nr = weights[-1].shape
-    weights = [w.contiguous() for w in weights]
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = _kernel_fn(name, y.dtype, 1 + len(weights) + len(outs))(
-            y.data_ptr(), *(w.data_ptr() for w in weights),
-            *(o.data_ptr() for o in outs), y.shape[0], ns, nr, float(lb),
-            float(ub), float(exp_cap), stream)
+    fn = _kernel_fn(name, y.dtype, 1 + len(weights) + len(outs), len(geometry))
+    weights = [w.contiguous() for w in weights]  # no copy if contiguous
+    ptrs = [y.data_ptr(), *(w.data_ptr() for w in weights),
+            *(o.data_ptr() for o in outs)]
+    index = y.device.index
+    on_current = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_current else torch.cuda.device(index):
+        rc = fn(*ptrs, batch, ns, nr, float(lb), float(ub), float(exp_cap),
+                *geometry, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return True
 
 
 def _arrhenius_weights(w_in, w_b, w_out):
@@ -169,11 +205,13 @@ def crnn_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
     launches."""
     if y.device.type == "cpu":
         return crnn_rhs_batched_reference(y, w_in, w_b, w_out, lb, ub, exp_cap)
-    check_kernel_inputs("crnn_rhs_batched", y, w_in, w_b, w_out,
-                        temperature=False)
+    ns, nr = check_kernel_inputs("crnn_rhs_batched", y, w_in, w_b, w_out,
+                                 temperature=False)
     du = torch.empty_like(y)
-    _launch("crnn_rhs", y, (w_in, w_b, w_out), (du,), lb, ub, exp_cap)
-    crnn_rhs_batched.launches += 1
+    geometry = tile_geometry(y.shape[0], ns, nr, y.element_size(), False)
+    if _launch("crnn_rhs", y, (w_in, w_b, w_out), (du,), lb, ub, exp_cap,
+               geometry):
+        crnn_rhs_batched.launches += 1
     return du
 
 
@@ -187,13 +225,14 @@ def crnn_rhs_jac_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
     if y.device.type == "cpu":
         return crnn_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb, ub,
                                               exp_cap)
-    ns, _ = check_kernel_inputs("crnn_rhs_jac_batched", y, w_in, w_b, w_out,
-                                temperature=False)
+    ns, nr = check_kernel_inputs("crnn_rhs_jac_batched", y, w_in, w_b, w_out,
+                                 temperature=False)
     du = torch.empty_like(y)
     jac = torch.empty((y.shape[0], ns, ns), dtype=y.dtype, device=y.device)
-    _launch("crnn_rhs_jac", y, (w_in, w_b, w_out), (du, jac), lb, ub,
-            exp_cap)
-    crnn_rhs_jac_batched.launches += 1
+    geometry = tile_geometry(y.shape[0], ns, nr, y.element_size(), True)
+    if _launch("crnn_rhs_jac", y, (w_in, w_b, w_out), (du, jac), lb, ub,
+               exp_cap, geometry):
+        crnn_rhs_jac_batched.launches += 1
     return du, jac
 
 
@@ -209,9 +248,9 @@ def arrhenius_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
                                                exp_cap)
     check_kernel_inputs("arrhenius_rhs_batched", y, w_in, w_b, w_out)
     du = torch.empty_like(y)
-    _launch("arrhenius_rhs", y, _arrhenius_weights(w_in, w_b, w_out), (du,),
-            lb, ub, exp_cap)
-    arrhenius_rhs_batched.launches += 1
+    if _launch("arrhenius_rhs", y, _arrhenius_weights(w_in, w_b, w_out),
+               (du,), lb, ub, exp_cap):
+        arrhenius_rhs_batched.launches += 1
     return du
 
 
@@ -229,9 +268,9 @@ def arrhenius_rhs_jac_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
     du = torch.empty_like(y)
     jac = torch.empty((y.shape[0], ns + 1, ns + 1), dtype=y.dtype,
                       device=y.device)
-    _launch("arrhenius_rhs_jac", y, _arrhenius_weights(w_in, w_b, w_out),
-            (du, jac), lb, ub, exp_cap)
-    arrhenius_rhs_jac_batched.launches += 1
+    if _launch("arrhenius_rhs_jac", y, _arrhenius_weights(w_in, w_b, w_out),
+               (du, jac), lb, ub, exp_cap):
+        arrhenius_rhs_jac_batched.launches += 1
     return du, jac
 
 

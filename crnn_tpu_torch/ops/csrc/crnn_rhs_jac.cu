@@ -14,14 +14,36 @@
 // the strict y < ub holds for every finite y.
 //
 // What bounds it: at robertson's shapes (B = 20 or 25, ns = 3, nr = 6, f64,
-// once per Rosenbrock23 step) one call reads ~0.7 KB and writes ~2.4 KB and
-// does ~150 flops a lane, so neither bytes (3.35 TB/s) nor flops bound it:
-// the launch latency does. The design is kernel 2's: one thread per lane
-// with the lane in registers, the weights staged once per block in shared
-// memory, ceil(B/128) blocks, no atomics, no scratch, one barrier. Each lane
-// writes its own ns^2 block of J, so a warp's stores are strided by ns^2
-// values; at large B a shared-memory transpose would coalesce them (not
-// needed at the callers' B).
+// once per Rosenbrock23 step) one call reads ~0.7 KB and writes ~2.4 KB, so
+// neither bytes (3.35 TB/s) nor flops bound it: the launch latency and the
+// longest serial chain of one thread do. One thread per lane would run ns
+// logs, ns divisions, nr exps (software routines in f64) and the ns + ns^2
+// dots of its outputs in a row; at large B its J stores would be strided by
+// ns^2 values across a warp, and the bytes of J bound the call.
+//
+// The design is kernel 4's flat lane tile (crnn_rhs.cu). A block owns
+// `lanes` consecutive lanes, so its slices of y (B, ns), du (B, ns) and
+// J (B, ns, ns) are contiguous spans. Three phases, each a loop over a flat
+// item index in which consecutive threads touch consecutive addresses,
+// separated by barriers:
+//   1. (lane, species): load y coalesced, clip, log into shared logx, and
+//      dlog = in_range / clip(y) into shared dlog;
+//   2. (lane, reaction): z = sum_i logx[i] w_in[i, r] (i ascending), + w_b,
+//      the cap, one exp into shared rates;
+//   3. (lane, i): du = sum_r rates[r] w_out[i, r], as kernel 4 computes
+//      it; then (lane, i, j): J = (sum_r (rates[r] w_out[i, r]) w_in[j, r])
+//      dlog[j], r ascending. Every output is stored at its flat index: the
+//      J stores of a warp are one contiguous run, with no transpose.
+// Each thread's chain is at most one log and one division, one exp, or one
+// dot per pass. Weights staged once per block in shared memory; lanes and
+// threads from crnn_tpu_torch/ops/crnn_kernels.py:tile_geometry, the shared
+// bytes and the grid derived here as in kernel 4, with the same refusals; no
+// early return before a barrier (a ragged tile masks its items); no atomics,
+// no scratch in device memory. Each dot runs in ascending index order with
+// fused multiply-adds; in J the product rates[r] w_out[i, r] is rounded
+// before its multiply-add with w_in[j, r], as in the one-thread-per-lane
+// kernel this replaces (the plain version's einsum may associate the triple
+// product otherwise, so J agrees with it to rounding, not bitwise).
 //
 // NaN handling as in kernel 4: clip, the exp cap and the in-range mask are
 // compare-and-select, and dlog is in_range / clip(y), so a NaN species gives
@@ -30,13 +52,16 @@
 //
 // Plain C interface, loaded with ctypes (crnn_tpu_torch/ops/_build.py).
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 256;
 constexpr int kMaxSpecies = 32;
 constexpr int kMaxReactions = 32;
+constexpr long long kMaxSharedBytes = 48 * 1024;
 
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
@@ -44,76 +69,103 @@ __device__ __forceinline__ float log_t(float x) { return logf(x); }
 __device__ __forceinline__ double log_t(double x) { return log(x); }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 crnn_rhs_jac_kernel(const T* __restrict__ y, const T* __restrict__ w_in,
                     const T* __restrict__ w_b, const T* __restrict__ w_out,
                     T* __restrict__ du, T* __restrict__ jac, long long batch,
-                    int ns, int nr, T lb, T ub, T exp_cap) {
-  // shared layout: w_in (ns*nr) | w_out (ns*nr) | w_b (nr)
+                    int ns, int nr, int lanes, T lb, T ub, T exp_cap) {
+  // shared layout: w_in (ns*nr) | w_out (ns*nr) | w_b (nr) |
+  //                logx (lanes*ns) | dlog (lanes*ns) | rates (lanes*nr)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_win = reinterpret_cast<T*>(smem_raw);
   T* s_wout = s_win + ns * nr;
   T* s_wb = s_wout + ns * nr;
-  for (int i = threadIdx.x; i < ns * nr; i += blockDim.x) {
-    s_win[i] = w_in[i];
-    s_wout[i] = w_out[i];
+  T* s_logx = s_wb + nr;
+  T* s_dlog = s_logx + lanes * ns;
+  T* s_rates = s_dlog + lanes * ns;
+
+  const long long lane0 = static_cast<long long>(blockIdx.x) * lanes;
+  const long long left = batch - lane0;
+  const int n_lanes = left < lanes ? static_cast<int>(left) : lanes;
+  const int nss = ns * ns;
+
+  for (int k = threadIdx.x; k < ns * nr; k += blockDim.x) {
+    s_win[k] = w_in[k];
+    s_wout[k] = w_out[k];
   }
-  for (int i = threadIdx.x; i < nr; i += blockDim.x) s_wb[i] = w_b[i];
+  for (int k = threadIdx.x; k < nr; k += blockDim.x) s_wb[k] = w_b[k];
+
+  // phase 1: (lane, species)
+  const T* yt = y + lane0 * ns;
+  for (int k = threadIdx.x; k < n_lanes * ns; k += blockDim.x) {
+    const T x = yt[k];
+    const T xc = x < lb ? lb : (x > ub ? ub : x);
+    s_logx[k] = log_t(xc);
+    const T in_range = (x > lb && x < ub) ? T(1) : T(0);
+    s_dlog[k] = in_range / xc;
+  }
   __syncthreads();
 
-  const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-  const T* yb = y + lane * ns;
-  T* db = du + lane * ns;
-  T* jb = jac + lane * ns * ns;
-
-  T logx[kMaxSpecies];
-  T dlog[kMaxSpecies];
-  for (int i = 0; i < ns; ++i) {
-    const T x = yb[i];
-    const T xc = x < lb ? lb : (x > ub ? ub : x);
-    logx[i] = log_t(xc);
-    const T in_range = (x > lb && x < ub) ? T(1) : T(0);
-    dlog[i] = in_range / xc;
-  }
-  T rates[kMaxReactions];
-  for (int r = 0; r < nr; ++r) {
+  // phase 2: (lane, reaction)
+  for (int k = threadIdx.x; k < n_lanes * nr; k += blockDim.x) {
+    const int l = k / nr;
+    const int r = k - l * nr;
+    const T* lx = s_logx + l * ns;
     T z = T(0);
-    for (int i = 0; i < ns; ++i) z += logx[i] * s_win[i * nr + r];
+    for (int i = 0; i < ns; ++i) z += lx[i] * s_win[i * nr + r];
     z = z + s_wb[r];
-    rates[r] = exp_t(z > exp_cap ? exp_cap : z);
+    s_rates[k] = exp_t(z > exp_cap ? exp_cap : z);
   }
-  for (int i = 0; i < ns; ++i) {
+  __syncthreads();
+
+  // phase 3: (lane, i) for du, then (lane, i, j) for J
+  T* dt = du + lane0 * ns;
+  for (int k = threadIdx.x; k < n_lanes * ns; k += blockDim.x) {
+    const int l = k / ns;
+    const int i = k - l * ns;
+    const T* lr = s_rates + l * nr;
     T acc = T(0);
-    T rw[kMaxReactions];
+    for (int r = 0; r < nr; ++r) acc += lr[r] * s_wout[i * nr + r];
+    dt[k] = acc;
+  }
+  T* jt = jac + lane0 * nss;
+  for (int k = threadIdx.x; k < n_lanes * nss; k += blockDim.x) {
+    const int l = k / nss;
+    const int ij = k - l * nss;
+    const int i = ij / ns;
+    const int j = ij - i * ns;
+    const T* lr = s_rates + l * nr;
+    T s = T(0);
     for (int r = 0; r < nr; ++r) {
-      rw[r] = rates[r] * s_wout[i * nr + r];
-      acc += rw[r];
+      const T rw = lr[r] * s_wout[i * nr + r];
+      s += rw * s_win[j * nr + r];
     }
-    db[i] = acc;
-    T* row = jb + i * ns;
-    for (int j = 0; j < ns; ++j) {
-      T s = T(0);
-      for (int r = 0; r < nr; ++r) s += rw[r] * s_win[j * nr + r];
-      row[j] = s * dlog[j];
-    }
+    jt[k] = s * s_dlog[l * ns + j];
   }
 }
 
 template <typename T>
 int launch(const void* y, const void* w_in, const void* w_b, const void* w_out,
            void* du, void* jac, long long batch, int ns, int nr, double lb,
-           double ub, double exp_cap, void* stream) {
+           double ub, double exp_cap, int lanes, int threads, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (ns < 1 || ns > kMaxSpecies || nr < 1 || nr > kMaxReactions || batch < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return invalid;
+  if (lanes < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return invalid;
+  // the kernel's shared layout: weights, then (2 * ns + nr) values a lane
+  const long long smem =
+      (2LL * ns * nr + nr + static_cast<long long>(lanes) * (2 * ns + nr))
+      * static_cast<long long>(sizeof(T));
+  const long long blocks = (batch + lanes - 1) / lanes;
+  if (smem > kMaxSharedBytes || blocks > INT_MAX) return invalid;
   if (batch == 0) return 0;
-  const long long blocks = (batch + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(2 * ns * nr + nr) * sizeof(T);
-  crnn_rhs_jac_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
+  crnn_rhs_jac_kernel<T><<<static_cast<unsigned>(blocks), threads,
+                           static_cast<size_t>(smem),
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<const T*>(w_in),
       static_cast<const T*>(w_b), static_cast<const T*>(w_out),
-      static_cast<T*>(du), static_cast<T*>(jac), batch, ns, nr,
+      static_cast<T*>(du), static_cast<T*>(jac), batch, ns, nr, lanes,
       static_cast<T>(lb), static_cast<T>(ub), static_cast<T>(exp_cap));
   return static_cast<int>(cudaGetLastError());
 }
@@ -125,17 +177,17 @@ extern "C" {
 int crnn_rhs_jac_f32(const void* y, const void* w_in, const void* w_b,
                      const void* w_out, void* du, void* jac, long long batch,
                      int ns, int nr, double lb, double ub, double exp_cap,
-                     void* stream) {
+                     int lanes, int threads, void* stream) {
   return launch<float>(y, w_in, w_b, w_out, du, jac, batch, ns, nr, lb, ub,
-                       exp_cap, stream);
+                       exp_cap, lanes, threads, stream);
 }
 
 int crnn_rhs_jac_f64(const void* y, const void* w_in, const void* w_b,
                      const void* w_out, void* du, void* jac, long long batch,
                      int ns, int nr, double lb, double ub, double exp_cap,
-                     void* stream) {
+                     int lanes, int threads, void* stream) {
   return launch<double>(y, w_in, w_b, w_out, du, jac, batch, ns, nr, lb, ub,
-                        exp_cap, stream);
+                        exp_cap, lanes, threads, stream);
 }
 
 }  // extern "C"

@@ -195,13 +195,21 @@ def _iso_inputs(b, dtype, device, ns=5, nr=4, seed=0):
     |z| ~ 30), which a 2e-6 gate would judge instead of the kernel. w_out
     is of one sign, so that du and J are sums without cancellation (at the
     capped row, terms of ~1e14 of both signs would leave their f32 rounding
-    in a difference 100x smaller)."""
+    in a difference 100x smaller). The orders shrink as 5/ns above ns = 5,
+    so that their sum, and with it z at a row clipped to ub = 10, stays that
+    of ns = 5: at ns = 32 the clipped row would put z at ~30, where the
+    one-ulp difference between two orders of a 32-term f32 sum moves
+    exp(z) by ~2e-6. A batch of fewer than 8 lanes holds the edge rows it
+    has room for; an edge's species index wraps at ns."""
     rng = np.random.default_rng(seed)
     y = np.abs(rng.normal(size=(b, ns))) + 0.05
-    y[0, 0], y[1, 1], y[2, 2], y[3, 3] = 1e-9, LB, 50.0, 0.0
-    y[4, 0], y[5, 1], y[6, 2] = np.nan, np.inf, -np.inf
-    y[7, :] = 1e30
-    arrays = (y, 0.5 * np.abs(rng.normal(size=(ns, nr))),
+    for row, col, val in ((0, 0, 1e-9), (1, 1, LB), (2, 2, 50.0), (3, 3, 0.0),
+                          (4, 0, np.nan), (5, 1, np.inf), (6, 2, -np.inf)):
+        if row < b:
+            y[row, col % ns] = val
+    if b > 7:
+        y[7, :] = 1e30
+    arrays = (y, 0.5 * min(1.0, 5.0 / ns) * np.abs(rng.normal(size=(ns, nr))),
               rng.normal(size=(nr,)) + 3.0, np.abs(rng.normal(size=(ns, nr))))
     return [torch.from_numpy(a.astype(dtype)).to(device) for a in arrays]
 
@@ -223,17 +231,21 @@ def _same_nonfinite_and_close_per_component(out, ref, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-6), (np.float64, 1e-12)])
-@pytest.mark.parametrize("batch", [20, 30, 4099])
+@pytest.mark.parametrize("batch", [1, 20, 21, 30, 33, 4099])
 @pytest.mark.parametrize("ub", [UB, np.inf])
-def test_crnn_kernels_match_plain_versions(cuda_device, dtype, tol, batch, ub):
-    args = _iso_inputs(batch, dtype, cuda_device)
+@pytest.mark.parametrize("ns,nr", [(5, 4), (3, 6), (32, 32), (1, 32), (32, 1)])
+def test_crnn_kernels_match_plain_versions(cuda_device, dtype, tol, batch, ub,
+                                           ns, nr):
+    """Kernels 4-5 at the main path's B, at ragged B (a last tile of 1 lane,
+    of one lane past a full tile) and at the caps ns, nr <= 32."""
+    args = _iso_inputs(batch, dtype, cuda_device, ns, nr)
     before = (tk.crnn_rhs_batched.launches, tk.crnn_rhs_jac_batched.launches)
     du = tk.crnn_rhs_batched(*args, LB, ub)
     du2, jac = tk.crnn_rhs_jac_batched(*args, LB, ub)
     torch.cuda.synchronize()
     assert (tk.crnn_rhs_batched.launches,
             tk.crnn_rhs_jac_batched.launches) == (before[0] + 1, before[1] + 1)
-    assert jac.shape == (batch, 5, 5)
+    assert jac.shape == (batch, ns, ns)
     du_ref, jac_ref = tk.crnn_rhs_jac_batched_reference(*args, LB, ub)
     for out, ref in ((du, tk.crnn_rhs_batched_reference(*args, LB, ub)),
                      (du2, du_ref), (jac, jac_ref)):
@@ -270,6 +282,28 @@ def test_crnn_wrappers_check_their_inputs(cuda_device):
             fn(torch.cat([y, y[:, :1]], dim=1), w_in, w_b, w_out, LB, UB)
         with pytest.raises(TypeError):
             fn(y.half(), w_in.half(), w_b.half(), w_out.half(), LB, UB)
+
+
+@pytest.mark.parametrize("jac", [False, True])
+def test_crnn_kernels_refuse_a_geometry_outside_the_launch_limits(
+        cuda_device, jac):
+    """The C launcher refuses, through its return code, no lanes, threads
+    that are not whole warps within 256, and lanes whose shared layout
+    exceeds 48 KB; an empty batch launches nothing and is not counted."""
+    y, w_in, w_b, w_out = _iso_inputs(4099, np.float32, cuda_device)
+    name = "crnn_rhs_jac" if jac else "crnn_rhs"
+    outs = (torch.empty_like(y),) + (
+        (torch.empty((4099, 5, 5), device=cuda_device),) if jac else ())
+    lanes, threads = tk.tile_geometry(4099, 5, 4, 4, jac)
+    for bad in ((0, threads), (lanes, 16), (lanes, 48), (lanes, 288),
+                (4099, threads)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            tk._launch(name, y, (w_in, w_b, w_out), outs, LB, UB, 32.0, bad)
+    fn = tk.crnn_rhs_jac_batched if jac else tk.crnn_rhs_batched
+    before = fn.launches
+    out = fn(y[:0], w_in, w_b, w_out, LB, UB)
+    assert fn.launches == before
+    assert (out[1] if jac else out).shape[0] == 0
 
 
 @pytest.mark.parametrize("name", ["case1", "robertson"])

@@ -312,3 +312,33 @@ def test_crnn_ops_gradients_match_jax_vjp(ub):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
                                        atol=1e-12)
     assert torch.autograd.gradcheck(rhs_op, inputs)
+
+
+@pytest.mark.parametrize("jac", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("ns,nr", [(5, 4), (3, 6), (32, 32), (1, 32), (32, 1)])
+@pytest.mark.parametrize("batch", [0, 1, 20, 21, 4099, 65536])
+def test_tile_geometry_covers_the_batch_within_the_launch_limits(batch, ns, nr,
+                                                                 itemsize, jac):
+    """The flat lane tile of kernels 4-5 (csrc/crnn_rhs.cu, crnn_rhs_jac.cu):
+    the launcher's grid of ceil(B / lanes) blocks covers every lane with no
+    empty block, the threads are whole warps within the kernels' launch
+    bound of 256 and cover the largest phase in a few passes, and the shared
+    memory the launcher lays out for these lanes (the weights, then
+    ns + nr values a lane, ns more with J) stays under 48 KB without an
+    opt-in."""
+    lanes, threads = tk.tile_geometry(batch, ns, nr, itemsize, jac)
+    blocks = -(-batch // lanes)
+    assert lanes >= 1 and blocks * lanes >= batch
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    items = lanes * max(ns, nr, ns * ns if jac else 0)
+    assert -(-items // threads) <= 4
+    per_lane_values = ns + nr + (ns if jac else 0)
+    smem = itemsize * (2 * ns * nr + nr + lanes * per_lane_values)
+    assert smem <= 48 * 1024
+    if batch == 0:
+        assert blocks == 0
+    if batch == 65536:
+        assert blocks >= 4 * 132  # many more blocks than the H100's SMs
+    if 1 <= batch <= 20 and (ns, nr) in ((5, 4), (3, 6)):
+        assert blocks == 1  # the main path's B is one block
