@@ -10,7 +10,14 @@ Phases, each printed with the seconds it took:
    the batch sizes of the main path and beyond, on edge inputs (x < lb,
    x = lb, x > ub, x = 0, NaN, +-inf, the exp cap); NaN positions must match
    exactly, finite values at rtol 1e-5 / atol 1e-6 (f32) or 1e-12 (f64);
-   then the kernel's device time against the plain version's;
+   then the kernel's device time against the plain version's (f32 at each
+   B, f64 at B=30); then the flat lane tile's coverage
+   (``arrhenius_coverage``): B in {1, 20, 21, 30, 33, 4099} (ragged last
+   tiles), at case2's shape (6, 3) and the caps (32, 32), (1, 32), (32, 1),
+   f32 and f64, on plain, edge and exp-cap inputs conditioned as phase 7's
+   (``arrhenius_cond_inputs``, drawn from a generator of their own): NaN
+   and inf positions exact, finite values within 2e-6 (f32) or 1e-12 (f64)
+   of each output component's largest value;
 3. slice: the case2 batch-mode training epoch at full width (30
    experiments, 50 save points, max_steps 128, f32): data generated on the
    card, 3 guarded epochs through run_case with every launch counter set to
@@ -29,7 +36,9 @@ Phases, each printed with the seconds it took:
    1e-9 of each component's largest value), against the port's early-exit
    while driver (lowrank) at 5e-4 of each component's largest, and at
    B=4099 in f32 and f64, beside how far one ulp of y0 moves the plain f64
-   solve; then both kernels' device times against their plain versions';
+   solve; then both kernels' device times against their plain versions'
+   (kernel 2 in f32 at each B and in f64 at B=30), and kernel 2 through
+   phase 2's coverage;
 5. dense slice: case2 with jac_mode='dense' as shipped, 2 guarded epochs
    through run_case with every launch counter set to 0 just before and read
    just after; the kernel path against the plain path at rtol 1e-4 on the
@@ -210,6 +219,131 @@ def arrhenius_bound_ms(batch, ns, nr, dtype):
     # an (nr x ns) dot and one division
     flops = batch * (ns + 2 * ns * nr + 4 * nr + nr + 2 * ns * nr + 1)
     return _bound(n_bytes, flops, dtype)
+
+
+def arrhenius_cond_inputs(batch, dtype, gen, shape, edges, device="cuda"):
+    """Inputs of kernels 1-2 for the per-component gates of the flat lane
+    tile's coverage, at ``shape`` (ns, nr): ``crnn_inputs``' orders, bias
+    and stoichiometry for a cap shape, an Ea row |N(0, 1)|, species U(0,
+    1.2), T in [323, 343] K, lb 1e-5, ub 10. ``edges``: False, True (the
+    first rows carry phase 2's edge values, T's among them, as many as the
+    batch has rows, a species index wrapping at ns) or 'exp-cap' (edge rows
+    and a bias of +60). Conditioned as ``crnn_inputs`` conditions phase 7's:
+    the orders' share of every finite exponent within ``_Z_ORDERS`` (the
+    orders shrink where it would not), every finite uncapped exponent within
+    16 (checked), w_out of one sign in f32 and at the cap, so the +60 lifts
+    every finite exponent at least 12 above the cap.
+
+    The case2 init is not used here: its Ea row and bias (both ~8, with a T
+    feature of ~-1.5) put terms of ~12 into an exponent of ~-4, and in f32
+    one ulp of 12 moves exp(z) by ~1e-6, so two roundings of the same sum
+    may differ by the whole gate. Phase 2's checks hold the case2 weights at
+    rtol 1e-5."""
+    from crnn_tpu_torch import clip
+    from crnn_tpu_torch.ops.crnn_kernels import _INV_R_KCAL
+
+    (ns, nr), lb, ub = shape, 1e-5, 10.0
+    w_in_x = (torch.randn((ns, nr), generator=gen, dtype=dtype).abs()
+              * (0.5 / ns ** 0.5))
+    w_ea = torch.randn((nr,), generator=gen, dtype=dtype).abs()
+    w_b = torch.randn((nr,), generator=gen, dtype=dtype)
+    w_out = torch.randn((ns, nr), generator=gen, dtype=dtype).abs()
+    x = torch.rand((batch, ns), generator=gen, dtype=dtype) * 1.2
+    temp = torch.rand((batch, 1), generator=gen, dtype=dtype) * 20.0 + 323.0
+    y = torch.cat([x, temp], dim=1)
+    if edges:
+        lb_t = torch.tensor(lb, dtype=dtype)
+        for row, (col, val) in enumerate([
+                (0, 1e-9), (0, lb_t), (1, 50.0), (2, 0.0), (0, math.nan),
+                (1, math.inf), (3, -math.inf), (None, math.nan), (4, -1.0),
+                (0, ub), (None, 0.0)][:batch]):
+            y[row, ns if col is None else col % ns] = val
+    logx = torch.log(clip(y[:, :ns], lb, ub))
+    z = logx @ w_in_x
+    z_in = float(z[torch.isfinite(z)].abs().max())
+    if z_in > _Z_ORDERS:
+        w_in_x = w_in_x * (_Z_ORDERS / z_in)
+    z = logx @ w_in_x + (_INV_R_KCAL / y[:, ns:]) * w_ea + w_b
+    if float(z[torch.isfinite(z)].abs().max()) > 16.0:
+        fail(f"arrhenius_cond_inputs: an exponent above 16 at {shape}")
+    if dtype == torch.float32 or edges == "exp-cap":
+        w_out = w_out.abs()
+    if edges == "exp-cap":
+        w_b = w_b + 60.0
+    w_in = torch.cat([w_in_x, w_ea[None, :]], dim=0)
+    return ([t.to(device).contiguous() for t in (y, w_in, w_b, w_out)],
+            (lb, ub))
+
+
+def arrhenius_coverage(jac: bool, gen):
+    """The flat lane tile of kernel 1 (kernel 2 with ``jac``) against its
+    plain version beyond phase 2's inputs: B in {1, 20, 21, 30, 33, 4099},
+    at case2's shape (6, 3) and the caps (32, 32), (1, 32), (32, 1), f32
+    and f64, plain, edge and exp-cap inputs from ``arrhenius_cond_inputs``:
+    NaN and inf positions exact, finite values within 2e-6 (f32) or 1e-12
+    (f64) of each output component's largest value over the lanes. Fails
+    the run on a miss; prints the largest error over its component's scale
+    for each shape and dtype."""
+    from crnn_tpu_torch.ops.crnn_kernels import (
+        arrhenius_rhs_batched, arrhenius_rhs_batched_reference,
+        arrhenius_rhs_jac_batched, arrhenius_rhs_jac_batched_reference,
+        tile_geometry)
+
+    name = "arrhenius_rhs_jac" if jac else "arrhenius_rhs"
+    kernel, plain = ((arrhenius_rhs_jac_batched,
+                      arrhenius_rhs_jac_batched_reference) if jac else
+                     (arrhenius_rhs_batched, arrhenius_rhs_batched_reference))
+    tol = {torch.float32: 2e-6, torch.float64: 1e-12}
+    for shape in ((6, 3), (32, 32), (1, 32), (32, 1)):
+        for dtype in (torch.float32, torch.float64):
+            worst = 0.0
+            for batch in (1, 20, 21, 30, 33, 4099):
+                for edges in (False, True, "exp-cap"):
+                    args, (lb, ub) = arrhenius_cond_inputs(batch, dtype, gen,
+                                                           shape, edges)
+                    outs, refs = (kernel(*args, lb, ub), plain(*args, lb, ub))
+                    torch.cuda.synchronize()
+                    if not jac:
+                        outs, refs = (outs,), (refs,)
+                    for o, r in zip(outs, refs):
+                        ok, err, rel = compare_components(o, r, tol[dtype])
+                        if not ok:
+                            fail(f"{name} disagrees with its plain version: "
+                                 f"{shape} B={batch} {dtype} edges={edges}: "
+                                 f"max abs err {err:.3e}")
+                        worst = max(worst, rel)
+                ns, nr = args[3].shape
+                geo = tile_geometry(batch, ns, nr, args[0].element_size(),
+                                    jac, temperature=True)
+                print(f"  {name} {shape} {str(dtype)[6:]} B={batch}: plain, "
+                      f"edges, exp cap: ok (lanes, threads: {geo})")
+            print(f"  {name} {shape} {str(dtype)[6:]}: largest error over its "
+                  f"component's largest value {worst:.3e} (gate "
+                  f"{tol[dtype]:.0e})")
+
+
+def time_arrhenius_f64(jac: bool, gen) -> dict:
+    """Kernel 1 (kernel 2 with ``jac``), its plain version and the launch
+    floor in f64 at B=30, timed as the f32 rows are."""
+    from crnn_tpu_torch.ops.crnn_kernels import (
+        arrhenius_rhs_batched, arrhenius_rhs_batched_reference,
+        arrhenius_rhs_jac_batched, arrhenius_rhs_jac_batched_reference)
+
+    kernel, plain = ((arrhenius_rhs_jac_batched,
+                      arrhenius_rhs_jac_batched_reference) if jac else
+                     (arrhenius_rhs_batched, arrhenius_rhs_batched_reference))
+    (y, w_in, w_b, w_out), (lb, ub) = arrhenius_inputs(30, torch.float64, gen,
+                                                       False)
+    row = {"ms": device_ms(lambda: kernel(y, w_in, w_b, w_out, lb, ub)),
+           "plain_ms": device_ms(lambda: plain(y, w_in, w_b, w_out, lb, ub)),
+           "floor_ms": floor_ms(y)}
+    bound, bound_by = (rhs_jac_bound_ms if jac else arrhenius_bound_ms)(
+        30, 6, 3, torch.float64)
+    print(f"  {'arrhenius_rhs_jac' if jac else 'arrhenius_rhs'} B=30 f64 "
+          f"ms/call: kernel_device={row['ms']:.5f}, plain_device="
+          f"{row['plain_ms']:.5f}, floor_device={row['floor_ms']:.5f}, "
+          f"bound={bound:.3e} ({bound_by})")
+    return {**row, "bound_ms": bound, "bound_by": bound_by}
 
 
 def run_slice(device: str, gen: torch.Generator):
@@ -1109,6 +1243,9 @@ def main() -> int:
                     print(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(0)
+    # the tile coverage of kernels 1-2 draws from its own generator, so
+    # phase 3 and the later phases see the draws they saw before it
+    cov_gen = torch.Generator().manual_seed(8)
     kernel_row = {}
     with phase("2 kernels"):
         cases = [(b, torch.float32) for b in (20, 30, 4099, 65536)]
@@ -1169,6 +1306,8 @@ def main() -> int:
                     ms_eager=times["kernel_eager"],
                     plain_ms_eager=times["plain_eager"], bound_ms=bound,
                     bound_by=bound_by, floor_ms=times["floor_device"])
+        kernel_row["f64_b30"] = time_arrhenius_f64(False, cov_gen)
+        arrhenius_coverage(False, cov_gen)
 
     with phase("3 slice"):
         row, setup, trained = run_slice("cuda", gen)
@@ -1176,6 +1315,8 @@ def main() -> int:
 
     with phase("4 kernels 2-3"):
         jac_row = check_rhs_jac_kernel(gen)
+        jac_row["f64_b30"] = time_arrhenius_f64(True, cov_gen)
+        arrhenius_coverage(True, cov_gen)
         solve_row = check_solve_kernel(setup, gen)
 
     with phase("5 dense slice"):

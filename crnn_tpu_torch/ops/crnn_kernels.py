@@ -105,36 +105,43 @@ def arrhenius_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb, ub,
 
 
 @functools.cache
-def _kernel_fn(name, dtype, n_ptr, n_geometry):
+def _kernel_fn(name, dtype, n_ptr):
     """The ctypes function of kernel ``name`` for ``dtype``, bound once:
-    ``n_ptr`` pointers, the shared scalars, ``n_geometry`` launch-geometry
-    ints (lanes, threads) and the stream."""
+    ``n_ptr`` pointers, the shared scalars, the tile's (lanes, threads) and
+    the stream."""
     fn = getattr(_build.load(name), f"{_SYMBOL[name]}_{SUFFIX[dtype]}")
     ptr = ctypes.c_void_p
     fn.argtypes = [ptr] * n_ptr + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-        ctypes.c_double, ctypes.c_double] + [ctypes.c_int] * n_geometry + [ptr]
+        ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_int, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=256)
-def tile_geometry(batch: int, ns: int, nr: int, itemsize: int, jac: bool):
-    """(lanes, threads) of the flat lane tile of the isothermal kernels
-    (``csrc/crnn_rhs.cu``, and ``csrc/crnn_rhs_jac.cu`` with ``jac``). A
-    block owns ``lanes`` consecutive lanes and loops over its items in three
-    phases: (lane, species), (lane, reaction), and the outputs, (lane,
-    species) and with ``jac`` also (lane, i, j). The lanes give a block at
-    most ``_TILE_ITEMS`` items in its largest phase (one lane at least) and
-    keep its shared memory (the weights, 2 ns nr + nr values, then ns + nr
-    values a lane, ns more with ``jac``) within 48 KB without an opt-in; the
-    threads, a multiple of 32 and at most ``_TILE_THREADS``, cover the
-    largest phase in one or a few passes. The launcher derives the shared
-    bytes and the grid, ceil(B / lanes) blocks, and refuses a layout above
-    48 KB."""
-    per_lane = max(ns, nr, ns * ns if jac else 0)
-    lane_bytes = itemsize * (ns + nr + (ns if jac else 0))
-    weight_bytes = itemsize * (2 * ns * nr + nr)
+def tile_geometry(batch: int, ns: int, nr: int, itemsize: int, jac: bool,
+                  temperature: bool = False):
+    """(lanes, threads) of the flat lane tile of the RHS kernels: the
+    isothermal pair (``csrc/crnn_rhs.cu``, and ``csrc/crnn_rhs_jac.cu`` with
+    ``jac``) and, with ``temperature``, the Arrhenius pair
+    (``csrc/arrhenius_rhs.cu``, ``csrc/arrhenius_rhs_jac.cu``), whose rows
+    of y, du and J are ns + 1 wide with the T column. A block owns
+    ``lanes`` consecutive lanes and loops over its items in phases: (lane,
+    column), (lane, reaction), and the outputs, (lane, column) and with
+    ``jac`` also (lane, i, j). The lanes give a block at most
+    ``_TILE_ITEMS`` items in its largest phase (one lane at least) and keep
+    its shared memory within 48 KB without an opt-in: the weights (2 ns nr
+    + nr values, nr more for the Ea row with ``temperature``), then a lane's
+    row of features (logx, and inv_t with ``temperature``), with ``jac`` a
+    row of J's column factors (dlog, and dt_feat with ``temperature``), and
+    nr rates. The threads, a multiple of 32 and at most ``_TILE_THREADS``,
+    cover the largest phase in one or a few passes. The launcher derives the
+    shared bytes and the grid, ceil(B / lanes) blocks, and refuses a layout
+    above 48 KB."""
+    width = ns + 1 if temperature else ns
+    per_lane = max(width, nr, width * width if jac else 0)
+    lane_bytes = itemsize * (width * (2 if jac else 1) + nr)
+    weight_bytes = itemsize * (2 * ns * nr + (2 if temperature else 1) * nr)
     lanes = max(1, min(batch, _TILE_ITEMS // per_lane,
                        (_SMEM_BYTES - weight_bytes) // lane_bytes))
     return lanes, min(_TILE_THREADS, -(-lanes * per_lane // 32) * 32)
@@ -169,16 +176,16 @@ def check_kernel_inputs(who, y, w_in, w_b, w_out, max_ns=_MAX_NS,
     return ns, nr
 
 
-def _launch(name, y, weights, outs, lb, ub, exp_cap, geometry=()):
+def _launch(name, y, weights, outs, lb, ub, exp_cap, geometry):
     """Launch ``name`` on y, the kernel's weight operands (w_out last, each
-    made contiguous) and ``outs`` on the current stream, with the launch
-    ``geometry`` where the kernel takes one. Returns False without a launch
-    for an empty batch; raises on a CUDA error."""
+    made contiguous) and ``outs`` on the current stream, with the tile's
+    ``geometry`` (lanes, threads) from ``tile_geometry``. Returns False
+    without a launch for an empty batch; raises on a CUDA error."""
     batch = y.shape[0]
     if batch == 0:
         return False
     ns, nr = weights[-1].shape
-    fn = _kernel_fn(name, y.dtype, 1 + len(weights) + len(outs), len(geometry))
+    fn = _kernel_fn(name, y.dtype, 1 + len(weights) + len(outs))
     weights = [w.contiguous() for w in weights]  # no copy if contiguous
     ptrs = [y.data_ptr(), *(w.data_ptr() for w in weights),
             *(o.data_ptr() for o in outs)]
@@ -246,10 +253,13 @@ def arrhenius_rhs_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
     if y.device.type == "cpu":
         return arrhenius_rhs_batched_reference(y, w_in, w_b, w_out, lb, ub,
                                                exp_cap)
-    check_kernel_inputs("arrhenius_rhs_batched", y, w_in, w_b, w_out)
+    ns, nr = check_kernel_inputs("arrhenius_rhs_batched", y, w_in, w_b,
+                                 w_out)
     du = torch.empty_like(y)
+    geometry = tile_geometry(y.shape[0], ns, nr, y.element_size(), False,
+                             temperature=True)
     if _launch("arrhenius_rhs", y, _arrhenius_weights(w_in, w_b, w_out),
-               (du,), lb, ub, exp_cap):
+               (du,), lb, ub, exp_cap, geometry):
         arrhenius_rhs_batched.launches += 1
     return du
 
@@ -264,12 +274,15 @@ def arrhenius_rhs_jac_batched(y, w_in, w_b, w_out, lb, ub, exp_cap=_EXP_CAP):
     if y.device.type == "cpu":
         return arrhenius_rhs_jac_batched_reference(y, w_in, w_b, w_out, lb,
                                                    ub, exp_cap)
-    ns, _ = check_kernel_inputs("arrhenius_rhs_jac_batched", y, w_in, w_b, w_out)
+    ns, nr = check_kernel_inputs("arrhenius_rhs_jac_batched", y, w_in, w_b,
+                                 w_out)
     du = torch.empty_like(y)
     jac = torch.empty((y.shape[0], ns + 1, ns + 1), dtype=y.dtype,
                       device=y.device)
+    geometry = tile_geometry(y.shape[0], ns, nr, y.element_size(), True,
+                             temperature=True)
     if _launch("arrhenius_rhs_jac", y, _arrhenius_weights(w_in, w_b, w_out),
-               (du, jac), lb, ub, exp_cap):
+               (du, jac), lb, ub, exp_cap, geometry):
         arrhenius_rhs_jac_batched.launches += 1
     return du, jac
 

@@ -39,17 +39,55 @@ def _inputs(b, dtype, device, ns=6, nr=3, seed=0):
     return [torch.from_numpy(a.astype(dtype)).to(device) for a in arrays]
 
 
+def _arrh_tile_inputs(b, dtype, device, ns, nr, seed=0):
+    """Inputs of kernels 1-2 for per-component gates at any B and at the
+    caps: ``_iso_inputs``' species, orders, bias and stoichiometry (their
+    edge rows, conditioning and one-signed w_out) with a T column in [323,
+    343] K (NaN in row 8 and 0 in row 9 where the batch has them) and an Ea
+    row 0.5 |N(0, 1)|: with a T feature of ~-1.5 it moves an exponent by
+    at most ~-3, so the exponents stay below ~16."""
+    y, w_in, w_b, w_out = _iso_inputs(b, dtype, "cpu", ns, nr, seed)
+    rng = np.random.default_rng(seed + 1)
+    temp = rng.uniform(323.0, 343.0, size=(b, 1))
+    for row, val in ((8, np.nan), (9, 0.0)):
+        if row < b:
+            temp[row, 0] = val
+    w_ea = 0.5 * np.abs(rng.normal(size=(1, nr)))
+    y = torch.cat([y, torch.from_numpy(temp.astype(dtype))], dim=1)
+    w_in = torch.cat([w_in, torch.from_numpy(w_ea.astype(dtype))])
+    return [t.to(device).contiguous() for t in (y, w_in, w_b, w_out)]
+
+
+# (batch, ns, nr, tile): the main path's B on _inputs at elementwise gates,
+# then ragged last tiles (1 lane, one past a tile) at case2's shape and the
+# caps on _arrh_tile_inputs at per-component gates of 2e-6 (f32), 1e-12
+# (f64)
+_ARRH_CASES = ([(b, 6, 3, False) for b in (20, 30, 4099)]
+               + [(b, ns, nr, True) for b in (1, 21, 33)
+                  for ns, nr in ((6, 3), (32, 32), (1, 32), (32, 1))])
+_TILE_TOL = {np.float32: 2e-6, np.float64: 1e-12}
+
+
+def _arrh_case_inputs(batch, ns, nr, tile, dtype, device, seed):
+    if tile:
+        return _arrh_tile_inputs(batch, dtype, device, ns, nr, seed)
+    return _inputs(batch, dtype, device, ns, nr, seed)
+
+
 @pytest.mark.parametrize("dtype,rtol,atol", [
     (np.float32, 1e-5, 1e-6), (np.float64, 1e-12, 1e-12)])
-@pytest.mark.parametrize("batch", [20, 30, 4099])
+@pytest.mark.parametrize("batch,ns,nr,tile", _ARRH_CASES)
 def test_arrhenius_kernel_matches_plain_version(cuda_device, dtype, rtol,
-                                                atol, batch):
-    args = _inputs(batch, dtype, cuda_device)
+                                                atol, batch, ns, nr, tile):
+    args = _arrh_case_inputs(batch, ns, nr, tile, dtype, cuda_device, 0)
     before = tk.arrhenius_rhs_batched.launches
     out = tk.arrhenius_rhs_batched(*args, LB, UB)
     torch.cuda.synchronize()
     assert tk.arrhenius_rhs_batched.launches == before + 1
     ref = tk.arrhenius_rhs_batched_reference(*args, LB, UB)
+    if tile:
+        _same_nonfinite_and_close_per_component(out, ref, _TILE_TOL[dtype])
+        return
     assert torch.equal(torch.isnan(out), torch.isnan(ref))
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                rtol=rtol, atol=atol)
@@ -95,18 +133,46 @@ def _same_nan_and_close(out, ref, rtol, atol):
 
 @pytest.mark.parametrize("dtype,rtol,atol", [
     (np.float32, 1e-5, 1e-6), (np.float64, 1e-12, 1e-12)])
-@pytest.mark.parametrize("batch", [20, 30, 4099])
+@pytest.mark.parametrize("batch,ns,nr,tile", _ARRH_CASES)
 def test_arrhenius_jac_kernel_matches_plain_version(cuda_device, dtype, rtol,
-                                                    atol, batch):
-    args = _inputs(batch, dtype, cuda_device, seed=1)
+                                                    atol, batch, ns, nr, tile):
+    args = _arrh_case_inputs(batch, ns, nr, tile, dtype, cuda_device, 1)
     before = tk.arrhenius_rhs_jac_batched.launches
     du, jac = tk.arrhenius_rhs_jac_batched(*args, LB, UB)
     torch.cuda.synchronize()
     assert tk.arrhenius_rhs_jac_batched.launches == before + 1
-    assert jac.shape == (batch, 7, 7)
+    assert jac.shape == (batch, ns + 1, ns + 1)
     du_ref, jac_ref = tk.arrhenius_rhs_jac_batched_reference(*args, LB, UB)
-    _same_nan_and_close(du, du_ref, rtol, atol)
-    _same_nan_and_close(jac, jac_ref, rtol, atol)
+    for out, ref in ((du, du_ref), (jac, jac_ref)):
+        if tile:
+            _same_nonfinite_and_close_per_component(out, ref,
+                                                    _TILE_TOL[dtype])
+        else:
+            _same_nan_and_close(out, ref, rtol, atol)
+
+
+@pytest.mark.parametrize("jac", [False, True])
+def test_arrhenius_kernels_refuse_a_geometry_outside_the_launch_limits(
+        cuda_device, jac):
+    """The Arrhenius launchers refuse, through their return code, no lanes,
+    threads that are not whole warps within 256, and lanes whose shared
+    layout exceeds 48 KB; an empty batch launches nothing and is not
+    counted."""
+    y, w_in, w_b, w_out = _inputs(4099, np.float32, cuda_device)
+    name = "arrhenius_rhs_jac" if jac else "arrhenius_rhs"
+    outs = (torch.empty_like(y),) + (
+        (torch.empty((4099, 7, 7), device=cuda_device),) if jac else ())
+    weights = tk._arrhenius_weights(w_in, w_b, w_out)
+    lanes, threads = tk.tile_geometry(4099, 6, 3, 4, jac, temperature=True)
+    for bad in ((0, threads), (lanes, 16), (lanes, 48), (lanes, 288),
+                (4099, threads)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            tk._launch(name, y, weights, outs, LB, UB, 32.0, bad)
+    fn = tk.arrhenius_rhs_jac_batched if jac else tk.arrhenius_rhs_batched
+    before = fn.launches
+    out = fn(y[:0], w_in, w_b, w_out, LB, UB)
+    assert fn.launches == before
+    assert (out[1] if jac else out).shape[0] == 0
 
 
 def test_arrhenius_jac_op_gradients_on_card(cuda_device):

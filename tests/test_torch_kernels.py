@@ -314,31 +314,44 @@ def test_crnn_ops_gradients_match_jax_vjp(ub):
     assert torch.autograd.gradcheck(rhs_op, inputs)
 
 
+@pytest.mark.parametrize("temperature", [False, True])
 @pytest.mark.parametrize("jac", [False, True])
 @pytest.mark.parametrize("itemsize", [4, 8])
-@pytest.mark.parametrize("ns,nr", [(5, 4), (3, 6), (32, 32), (1, 32), (32, 1)])
+@pytest.mark.parametrize("ns,nr", [(5, 4), (3, 6), (6, 3), (32, 32), (1, 32),
+                                   (32, 1)])
 @pytest.mark.parametrize("batch", [0, 1, 20, 21, 4099, 65536])
-def test_tile_geometry_covers_the_batch_within_the_launch_limits(batch, ns, nr,
-                                                                 itemsize, jac):
-    """The flat lane tile of kernels 4-5 (csrc/crnn_rhs.cu, crnn_rhs_jac.cu):
-    the launcher's grid of ceil(B / lanes) blocks covers every lane with no
-    empty block, the threads are whole warps within the kernels' launch
-    bound of 256 and cover the largest phase in a few passes, and the shared
-    memory the launcher lays out for these lanes (the weights, then
-    ns + nr values a lane, ns more with J) stays under 48 KB without an
-    opt-in."""
-    lanes, threads = tk.tile_geometry(batch, ns, nr, itemsize, jac)
+def test_tile_geometry_covers_the_batch_within_the_launch_limits(
+        batch, ns, nr, itemsize, jac, temperature):
+    """The flat lane tile of kernels 4-5 (csrc/crnn_rhs.cu, crnn_rhs_jac.cu)
+    and, with ``temperature``, of kernels 1-2 (csrc/arrhenius_rhs.cu,
+    arrhenius_rhs_jac.cu), whose rows are ns + 1 wide: the launcher's grid
+    of ceil(B / lanes) blocks covers every lane with no empty block, the
+    threads are whole warps within the kernels' launch bound of 256 and
+    cover the largest phase (width, nr or width^2 items a lane) in a few
+    passes, and the shared memory the launcher lays out for these lanes
+    stays under 48 KB without an opt-in: the weights (2 ns nr + nr values,
+    nr more for the Ea row), then a row of width features, with J a row of
+    width column factors, and nr rates a lane."""
+    lanes, threads = tk.tile_geometry(batch, ns, nr, itemsize, jac,
+                                      temperature=temperature)
     blocks = -(-batch // lanes)
     assert lanes >= 1 and blocks * lanes >= batch
     assert threads % 32 == 0 and 32 <= threads <= 256
-    items = lanes * max(ns, nr, ns * ns if jac else 0)
-    assert -(-items // threads) <= 4
-    per_lane_values = ns + nr + (ns if jac else 0)
-    smem = itemsize * (2 * ns * nr + nr + lanes * per_lane_values)
+    width = ns + 1 if temperature else ns
+    per_lane = max(width, nr, width * width if jac else 0)
+    items = lanes * per_lane
+    # 512 items a block, or one lane of up to 33^2 J items
+    assert -(-items // threads) <= max(2, -(-per_lane // 256))
+    weights = 2 * ns * nr + (2 if temperature else 1) * nr
+    per_lane_values = width * (2 if jac else 1) + nr
+    smem = itemsize * (weights + lanes * per_lane_values)
     assert smem <= 48 * 1024
     if batch == 0:
         assert blocks == 0
     if batch == 65536:
         assert blocks >= 4 * 132  # many more blocks than the H100's SMs
-    if 1 <= batch <= 20 and (ns, nr) in ((5, 4), (3, 6)):
-        assert blocks == 1  # the main path's B is one block
+    main_path = ((6, 3),) if temperature else ((5, 4), (3, 6))
+    if 1 <= batch <= 20 and (ns, nr) in main_path:
+        # the main path's B: the blocks its items fill at 512 a block (one;
+        # two for case2's 49 J items a lane at B = 20)
+        assert blocks == -(-batch * per_lane // 512)
