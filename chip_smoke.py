@@ -5,7 +5,12 @@
 Phases, each printed with the seconds it took:
 
 1. device: the card's name and power limit (nvidia-smi), the torch version,
-   and the build of every CUDA kernel of the main path with plain nvcc;
+   the build of every CUDA kernel of the main path with plain nvcc (one
+   process a source, all started together), and the latency of one
+   dependent operation of each class kernel 3's chain holds (FMA, IEEE
+   division, sqrt, exp, log, pow, shuffle, compare-and-select), f32 and
+   f64, from one-warp chains of ``ops/csrc/latency_probe.cu`` (a
+   measurement aid, not a kernel of the path);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the batch sizes of the main path and beyond, on edge inputs (x < lb,
    x = lb, x > ub, x = 0, NaN, +-inf, the exp cap); NaN positions must match
@@ -36,9 +41,16 @@ Phases, each printed with the seconds it took:
    1e-9 of each component's largest value), against the port's early-exit
    while driver (lowrank) at 5e-4 of each component's largest, and at
    B=4099 in f32 and f64, beside how far one ulp of y0 moves the plain f64
-   solve; then both kernels' device times against their plain versions'
-   (kernel 2 in f32 at each B and in f64 at B=30), and kernel 2 through
-   phase 2's coverage;
+   solve; kernel 3's lane-group coverage (``solve_coverage``, the same
+   gates): B in {1, 30, 31, 33, 4099} (ragged warps and blocks) at case2's
+   shape (6, 3), the compiled path, and at (1, 1), (3, 2), (7, 4) and the
+   caps (8, 4), the runtime path (16 threads a lane at ns = 8), then every
+   (ns, nr) within the caps at B=3, f32 and f64, on inputs conditioned as
+   ``solve_inputs`` says (the one-ulp witness printed at B=4099); then both
+   kernels' device times against their plain versions' (kernel 2 in f32 at
+   each B and in f64 at B=30; kernel 3 at B=30 in f32 and f64 and at
+   B=4099 in f32, with its latency bound and us per step), and kernel 2
+   through phase 2's coverage;
 5. dense slice: case2 with jac_mode='dense' as shipped, 2 guarded epochs
    through run_case with every launch counter set to 0 just before and read
    just after; the kernel path against the plain path at rtol 1e-4 on the
@@ -73,6 +85,9 @@ Phases, each printed with the seconds it took:
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
 kernel is, which says how much of the row's ``ms`` is the launch itself.
+Kernel 3's row also carries ``latency_bound_ms`` (``rb23_latency_bound_ms``:
+its dependent chain, counted from its source, at phase 1's latencies, over
+the longest lane's steps) and ``us_per_step``.
 
 The last lines are the card (nvidia-smi), one JSON line with every
 kernel's numbers, and the result line
@@ -531,6 +546,111 @@ def rb23_bound_ms(n_steps, ns, nr, dtype):
     return _bound(n_bytes, flops, dtype)
 
 
+_LATENCY_OPS = ("fma", "div", "sqrt", "exp", "log", "pow", "shfl", "max")
+# each chain's start and constants (ops/csrc/latency_probe.cu): x0, a, b
+_LATENCY_ARGS = {"fma": (0.0, 0.5, 0.5), "div": (1.5, 2.0, 0.0),
+                 "sqrt": (2.0, 0.0, 0.0), "exp": (0.5, 0.0, 0.0),
+                 "log": (0.5, 0.0, 0.0), "pow": (0.5, 0.5, 0.0),
+                 "shfl": (1.0, 0.0, 0.0), "max": (0.0, 1.0, 0.0)}
+
+
+def op_latencies(dtype) -> dict:
+    """Nanoseconds of one dependent operation of each class on the card:
+    one warp runs a chain of 2^13 and of 2^16 operations
+    (``ops/csrc/latency_probe.cu``), each launch timed with CUDA events;
+    the smaller of three differences over the difference of lengths."""
+    import ctypes
+
+    from crnn_tpu_torch.ops import _build
+
+    fn = getattr(_build.load("latency_probe"),
+                 f"latency_chain_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_double] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(32, dtype=dtype, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    short, long_ = 1 << 13, 1 << 16
+
+    def timed(op, n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = fn(op, n, *_LATENCY_ARGS[_LATENCY_OPS[op]], out.data_ptr(),
+                stream)
+        stop.record()
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"latency probe launch failed: cudaError {rc}")
+        return start.elapsed_time(stop)
+
+    lat = {}
+    for op, name in enumerate(_LATENCY_OPS):
+        timed(op, short)
+        lat[name] = min(timed(op, long_) - timed(op, short)
+                        for _ in range(3)) / (long_ - short) * 1e6
+    if not all(math.isfinite(v) and v > 0 for v in lat.values()):
+        fail(f"latency probe: {lat}")
+    return lat
+
+
+def rb23_chain(ns, nr, lat):
+    """(init, period): the dependent chains of the whole-solve kernel
+    (``ops/csrc/arrh_rb23_solve.cu``, lane groups), counted from its source
+    as Counters of operation classes (``_LATENCY_OPS``; ``max`` is a
+    compare-and-select, ``fma`` also an add or a multiply) along the longest
+    path at the latencies ``lat``. ``init`` is Hairer's initial dt up to the
+    first step's dt; ``period`` the longer of a step's two cycles: y to the
+    next y (rhs, Woodbury inverse, three stages, error norm, accept), and
+    hd to the next hd (the inverse's last FMA, Gauss-Jordan, the stages,
+    the norm, pow and the controller). Stores, loads and the finite-check
+    vote are off the chain; a shuffle's partners are assumed ready."""
+    from collections import Counter as C
+
+    def longest(*paths):
+        return max(paths, key=lambda p: sum(lat[k] * v for k, v in p.items()))
+
+    ns1 = ns + 1
+    # rhs: the clipped log (its gather and the ns-term sum) beside the T
+    # feature (a gather and a division), the Ea and bias terms, the cap,
+    # exp, the rates' gather and the nr-term sum, the T row's select
+    rate = (longest(C(max=2, log=1, shfl=1, fma=ns), C(shfl=1, div=1))
+            + C(fma=2, max=1, exp=1))
+    du = rate + C(shfl=1, fma=nr, max=1)
+    fac = C(max=3, div=1)                         # dlog or dt_feat
+    rms = C(shfl=1, fma=ns1, div=1, sqrt=1)       # gather, ns+1 sum, mean
+    gj = C(shfl=1, div=nr, fma=2 * nr)            # broadcast M, invert
+    ws_pre = C(fma=ns + 3, shfl=2)                # v*fac, gather, sum, s
+    ws_post = C(fma=2 * nr + 1, max=1)            # M^-1 s, U x, v + hd u
+    # from M^-1 (and k1's s) to err: k1, stage 2, k2, y1, stage 3, k3,
+    # y_err, the ratio and its finite select, the norm, the ok select
+    stages = (ws_post + C(fma=1) + du + C(fma=1) + ws_pre + ws_post
+              + C(fma=2) + du + C(fma=2) + ws_pre + ws_post
+              + C(fma=2, div=1, max=1) + rms + C(max=1))
+    minv_y = longest(rate, fac + C(shfl=1, fma=ns)) + C(fma=2) + gj
+    k1_in = longest(minv_y, longest(du, fac) + ws_pre)
+    y_cycle = k1_in + stages + C(max=2)           # accept, y = y1
+    # errc, pow, safety, clip, dt*factor; dt clip and hd of the next step;
+    # the inverse's last FMA
+    hd_cycle = C(fma=1) + gj + stages + C(max=5, pow=1, fma=3)
+    init = (du + C(div=1) + rms + C(max=3, div=1, fma=1) + du
+            + C(fma=1, div=1) + rms + C(div=2, max=5, pow=1))
+    return init, longest(y_cycle, hd_cycle)
+
+
+def rb23_latency_bound_ms(longest_steps, ns, nr, lat):
+    """(latency_bound_ms, init Counter, period Counter): the initial-dt
+    chain plus the longest lane's steps times a step's period, at the
+    latencies ``lat`` (ns per operation class, ``op_latencies``)."""
+    init, period = rb23_chain(ns, nr, lat)
+
+    def ns_of(path):
+        return sum(lat[k] * v for k, v in path.items())
+
+    return ((ns_of(init) + longest_steps * ns_of(period)) * 1e-6, init,
+            period)
+
+
 def _bound(n_bytes, flops, dtype):
     t_bytes = n_bytes / _HBM_BYTES_PER_S * 1e3
     t_flops = flops / _PEAK_FLOPS[dtype] * 1e3
@@ -633,13 +753,14 @@ def rel_err_components(a, b):
                   / b.abs().amax(dim=(0, 1))).max())
 
 
-def solve_kernel_vs_plain(u0, w, saveat, consts, label):
+def solve_kernel_vs_plain(u0, w, saveat, consts, label, quiet=False):
     """Kernel 3 (histories filled with NaN first) against its plain version
     on the same inputs; fails the run if they disagree: in f32 ys within
     5e-4 of each state component's largest value and success equal (the
     step sequence follows rounding); in f64 n_steps and status exact and ys
     within 1e-9 of each component's largest value. Returns (max abs error
-    of ys, kernel outputs, kernel ys, plain ys)."""
+    of ys, kernel outputs, kernel ys, plain ys, the error over each
+    component's largest); ``quiet`` prints only a failure."""
     from crnn_tpu_torch.ops.rb23_solve_kernel import (
         _dense_output, arrh_rb23_solve, arrh_rb23_solve_reference)
 
@@ -658,6 +779,8 @@ def solve_kernel_vs_plain(u0, w, saveat, consts, label):
         ok = (ok and torch.equal(out[7], ref[7]) and torch.equal(out[8], ref[8])
               and rel_c < 1e-9)
     err = float((ys - ys_ref).abs().max())
+    if quiet and ok:
+        return err, out, ys, ys_ref, rel_c
     print(f"  arrh_rb23_solve {label} {str(u0.dtype)[6:]} vs plain: "
           f"ys max err {rel_c:.3e} of each component's largest (max abs "
           f"{err:.3e}), n_steps "
@@ -667,7 +790,73 @@ def solve_kernel_vs_plain(u0, w, saveat, consts, label):
     if not ok:
         fail(f"arrh_rb23_solve disagrees with its plain version ({label}, "
              f"{u0.dtype})")
-    return err, out, ys, ys_ref
+    return err, out, ys, ys_ref, rel_c
+
+
+def solve_inputs(batch, ns, nr, dtype, seed=0, device="cuda"):
+    """Kernel 3's coverage inputs on ``device``, the draws of
+    ``tests/test_torch_gpu.py:_solve_case``: two species in [0.2, 2.2] (one
+    at ns = 1), T in [323, 343] K, weights from ``p2vec_case2`` of the
+    reference init. At case2's shape the log rate constants are raised by
+    1.3 so that steps get rejected; at the other shapes the init's +0.8
+    with half its spread (0.05) conditions the solve: one ulp of y0 moves
+    the plain f64 solve by at most 2.2e-13 of a component's largest value
+    over every (ns, nr) within the caps at B=30, and 2.2e-14 at B=4099
+    (one-ulp witness, plain version on the CPU), where the f64 gate is
+    1e-9."""
+    import numpy as np
+
+    from crnn_tpu_torch.transforms.p2vec import p2vec_case2
+
+    rng = np.random.default_rng(seed)
+    shift, spread = (1.3, 0.1) if (ns, nr) == (6, 3) else (0.8, 0.05)
+    p = spread * rng.normal(size=nr * (ns + 2) + 1)
+    p[:nr] += shift
+    p[nr * (ns + 1):nr * (ns + 2)] += 0.8
+    p[-1] = 0.1
+    u0 = np.zeros((batch, ns + 1))
+    k = min(2, ns)
+    u0[:, :k] = rng.uniform(size=(batch, k)) * 2.0 + 0.2
+    u0[:, ns] = rng.uniform(size=batch) * 20.0 + 323.0
+    w = p2vec_case2(torch.from_numpy(p).to(device, dtype), ns, nr)
+    return torch.from_numpy(u0).to(device, dtype), w
+
+
+def solve_coverage(consts):
+    """Kernel 3's lane groups against its plain version at the gates of
+    ``solve_kernel_vs_plain``: B in {1, 30, 31, 33, 4099} at case2's shape
+    (6, 3), the compiled path, and at (1, 1), (3, 2), (7, 4) and (8, 4),
+    the runtime path; then every (ns, nr) within the caps at B=3; f32 and
+    f64. The one-ulp witness at B=4099 f64 of each runtime shape. One line
+    per shape and dtype: the error over each component's largest, by B."""
+    saveat = torch.linspace(0.0, consts["t1"], 50, device="cuda")
+    for shape in ((6, 3), (1, 1), (3, 2), (7, 4), (8, 4)):
+        for dtype in (torch.float32, torch.float64):
+            errs = []
+            for batch in (1, 30, 31, 33, 4099):
+                u0, w = solve_inputs(batch, *shape, dtype)
+                _, out, ys, ys_ref, rel = solve_kernel_vs_plain(
+                    u0, w, saveat.to(dtype), consts, f"B={batch} {shape}",
+                    quiet=True)
+                errs.append(f"B={batch} {rel:.3e} (steps "
+                            f"{int(out[8].min())}-{int(out[8].max())})")
+                if batch == 4099 and dtype == torch.float64 and shape != (6, 3):
+                    ulp_witness(u0, w, saveat.to(dtype), consts, ys, ys_ref)
+            print(f"  arrh_rb23_solve {shape} {str(dtype)[6:]} vs plain, "
+                  f"error over each component's largest: " + ", ".join(errs))
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for ns in range(1, 9):
+            for nr in range(1, 5):
+                u0, w = solve_inputs(3, ns, nr, dtype)
+                rel = solve_kernel_vs_plain(u0, w, saveat.to(dtype), consts,
+                                            f"B=3 ({ns}, {nr})", quiet=True)[4]
+                worst[dtype] = max(worst.get(dtype, (0.0, None)),
+                                   (rel, (ns, nr)), key=lambda x: x[0])
+    print("  arrh_rb23_solve every (ns, nr) within the caps at B=3 vs plain: "
+          "ok, worst error over each component's largest " + ", ".join(
+              f"{str(dtype)[6:]} {rel:.3e} at {shape}"
+              for dtype, (rel, shape) in worst.items()))
 
 
 def ulp_witness(u0, w, saveat, consts, ys_kernel, ys_plain):
@@ -693,27 +882,30 @@ def ulp_witness(u0, w, saveat, consts, ys_kernel, ys_plain):
           f"{species_err(ys_kernel, ys_plain)}")
 
 
-def check_solve_kernel(setup, gen) -> dict:
+def check_solve_kernel(setup, gen, lat) -> dict:
     """Kernel 3 against its plain version and the while driver on case2's
     30 initial states at the initial params, then at B=4099 (f32 and f64,
-    with the one-ulp witness), then its device time at B=30. Returns its
+    with the one-ulp witness), then its lane-group coverage
+    (``solve_coverage``), then its device time at B=30 (f32 and f64) and at
+    B=4099 (f32) beside its bounds: bytes and operations, and its dependent
+    chain at the latencies ``lat`` ({dtype: ns per class}). Returns its
     row's numbers."""
     from crnn_tpu_torch.cases.case2 import Case2Config, make_u0
     from crnn_tpu_torch.ops.rb23_solve_kernel import (
         arrh_rb23_solve, arrh_rb23_solve_reference, make_arrhenius_fused_solve)
 
-    row = {}
+    row, n_steps = {}, {}
     cfg = Case2Config()
     consts = case2_solve_kwargs(cfg)
     ds = setup.dataset
     for dtype in (torch.float32, torch.float64):
         u0 = ds.u0.to(dtype).contiguous()
         w = setup.weights_fn(setup.init_params.to(dtype))
-        err, out, _, _ = solve_kernel_vs_plain(u0, w, ds.ts.to(dtype), consts,
-                                               "case2 u0, initial params")
+        err, out = solve_kernel_vs_plain(u0, w, ds.ts.to(dtype), consts,
+                                         "case2 u0, initial params")[:2]
+        n_steps[dtype] = out[8]
         if dtype == torch.float32:
             row["max_abs_err"] = err
-            n_steps = out[8]
     u0, w = ds.u0.contiguous(), setup.weights_fn(setup.init_params)
     fused = make_arrhenius_fused_solve(cfg.ns, cfg.nr, cfg.lb, cfg.ub, 0.0,
                                        consts["t1"], ds.ts, cfg.rtol, cfg.atol,
@@ -733,35 +925,54 @@ def check_solve_kernel(setup, gen) -> dict:
     solve_kernel_vs_plain(big, w, ds.ts, consts, "B=4099")
     big64, w64, ts64 = big.double(), setup.weights_fn(
         setup.init_params.double()), ds.ts.double()
-    _, _, ys64, ys64_ref = solve_kernel_vs_plain(big64, w64, ts64, consts,
-                                                 "B=4099")
+    ys64, ys64_ref = solve_kernel_vs_plain(big64, w64, ts64, consts,
+                                           "B=4099")[2:4]
     ulp_witness(big64, w64, ts64, consts, ys64, ys64_ref)
+    solve_coverage(consts)
 
-    def kernel():
-        return arrh_rb23_solve(u0, w.w_in, w.w_b, w.w_out, **consts)
+    def kernel(y, w_):
+        return lambda: arrh_rb23_solve(y, w_.w_in, w_.w_b, w_.w_out, **consts)
 
     def plain():
         return arrh_rb23_solve_reference(u0, w.w_in, w.w_b, w.w_out, **consts)
 
-    times = {"kernel_device": device_ms(kernel, n=20),
-             "kernel_eager": eager_ms(kernel, n=50, warmup=5),
+    u0_64, w_64 = u0.double(), setup.weights_fn(setup.init_params.double())
+    times = {"kernel_device": device_ms(kernel(u0, w), n=20),
+             "kernel_device_f64": device_ms(kernel(u0_64, w_64), n=20),
+             "kernel_device_b4099": device_ms(kernel(big, w), n=20),
+             "kernel_eager": eager_ms(kernel(u0, w), n=50, warmup=5),
              "plain_eager": eager_ms(plain, n=5, warmup=2),
              "floor_device": floor_ms(u0)}
-    bound, bound_by = rb23_bound_ms(n_steps, cfg.ns, cfg.nr, torch.float32)
-    longest = int(n_steps.max())
+    bound, bound_by = rb23_bound_ms(n_steps[torch.float32], cfg.ns, cfg.nr,
+                                    torch.float32)
+    longest = int(n_steps[torch.float32].max())
+    lat_bound, init, period = rb23_latency_bound_ms(longest, cfg.ns, cfg.nr,
+                                                    lat[torch.float32])
+    longest64 = int(n_steps[torch.float64].max())
+    lat_bound64 = rb23_latency_bound_ms(longest64, cfg.ns, cfg.nr,
+                                        lat[torch.float64])[0]
+    us_per_step = times["kernel_device"] / longest * 1e3
     print(f"  arrh_rb23_solve B=30 f32 ms/call: " + ", ".join(
         f"{k}={v:.5f}" for k, v in times.items())
         + f", bound={bound:.3e} ({bound_by}); serial chain: the longest lane "
-        f"takes {longest} steps, {times['kernel_device'] / longest * 1e3:.2f}"
-        f" us of kernel time per step; steps summed over lanes "
-        f"{int(n_steps.sum())}")
+        f"takes {longest} steps (f64 {longest64}), {us_per_step:.3f} us of "
+        f"kernel time per step; steps summed over lanes "
+        f"{int(n_steps[torch.float32].sum())}")
+    print(f"  arrh_rb23_solve latency bound B=30 f32 {lat_bound:.5f} ms (f64 "
+          f"{lat_bound64:.5f} ms): initial dt {dict(sorted(init.items()))}, a "
+          f"step {dict(sorted(period.items()))}; ns per operation f32 "
+          + json.dumps({k: round(v, 3) for k, v in lat[torch.float32].items()}))
     print("  plain_ms of arrh_rb23_solve is eager (host clock included): the "
           "plain version checks on the host once per step whether a lane "
           "still runs, so it cannot be captured in a CUDA graph")
     row.update(ms=times["kernel_device"], plain_ms=times["plain_eager"],
                ms_eager=times["kernel_eager"], bound_ms=bound,
-               bound_by=bound_by, longest_lane_steps=longest,
-               floor_ms=times["floor_device"])
+               bound_by=bound_by, latency_bound_ms=lat_bound,
+               us_per_step=us_per_step, longest_lane_steps=longest,
+               floor_ms=times["floor_device"],
+               ms_f64=times["kernel_device_f64"],
+               latency_bound_ms_f64=lat_bound64,
+               ms_b4099=times["kernel_device_b4099"])
     return row
 
 
@@ -1235,12 +1446,19 @@ def main() -> int:
               f"device {torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
         libs = _build.build("arrhenius_rhs", "arrhenius_rhs_jac",
-                            "arrh_rb23_solve", "crnn_rhs", "crnn_rhs_jac")
+                            "arrh_rb23_solve", "crnn_rhs", "crnn_rhs_jac",
+                            "latency_probe")
         print(f"kernel build: {time.perf_counter() - t0:.2f} s")
         for name, path in libs.items():
             for line in path.with_suffix(".log").read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "Compiling entry" in line or "registers" in line or (
+                        "spill" in line):
                     print(f"  ptxas {name}: {line.strip()}")
+        lat = {dtype: op_latencies(dtype)
+               for dtype in (torch.float32, torch.float64)}
+        for dtype, ns_per_op in lat.items():
+            print(f"  ns per dependent operation {str(dtype)[6:]}: "
+                  + json.dumps({k: round(v, 3) for k, v in ns_per_op.items()}))
 
     gen = torch.Generator().manual_seed(0)
     # the tile coverage of kernels 1-2 draws from its own generator, so
@@ -1317,7 +1535,7 @@ def main() -> int:
         jac_row = check_rhs_jac_kernel(gen)
         jac_row["f64_b30"] = time_arrhenius_f64(True, cov_gen)
         arrhenius_coverage(True, cov_gen)
-        solve_row = check_solve_kernel(setup, gen)
+        solve_row = check_solve_kernel(setup, gen, lat)
 
     with phase("5 dense slice"):
         jac_row.update(run_dense_slice(setup.dataset, gen))

@@ -2,52 +2,65 @@
 // lanes in one launch, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
-// crnn_tpu/ops/rb23_solve_kernel.py:_arrh_rb23_solve_kernel (launched
-// through _arrh_rb23_solve_pallas, with _inv_rows). Each lane integrates
-// y' = f(y), y = [x (ns species), T], from t0 to t1 with the Shampine 2(3)
-// W-method: Hairer's initial dt, three stages over one Woodbury W-solve
-// (the rank-nr Jacobian J = U V, inner matrix M = I - h d V U inverted by
-// Gauss-Jordan without pivoting), the Hairer error norm and the
-// I-controller, exactly as the JAX kernel body does, line by line. Every
-// step's endpoints (t, t_new, accepted, y, y_new, f0, f2) are recorded into
-// step-major histories (K, B) and (K, ns+1, B); the cubic-Hermite saveat
-// output is a plain-torch post-pass (rb23_solve_kernel.py:_dense_output).
+// crnn_tpu/ops/rb23_solve_kernel.py:85 _arrh_rb23_solve_kernel (launched
+// through _arrh_rb23_solve_pallas, :294, with _inv_rows). Each lane
+// integrates y' = f(y), y = [x (ns species), T], from t0 to t1 with the
+// Shampine 2(3) W-method: Hairer's initial dt, three stages over one
+// Woodbury W-solve (the rank-nr Jacobian J = U V, inner matrix
+// M = I - h d V U inverted by Gauss-Jordan without pivoting), the Hairer
+// error norm and the I-controller, exactly as the JAX kernel body does,
+// line by line. Every step's endpoints (t, t_new, accepted, y, y_new, f0,
+// f2) are recorded into step-major histories (K, B) and (K, ns+1, B); the
+// cubic-Hermite saveat output is a plain-torch post-pass
+// (rb23_solve_kernel.py:_dense_output).
 //
-// What bounds it: not bytes and not flops. At case2's shapes (B = 30,
-// ns = 6, nr = 3, ~60 steps) a lane's step is ~500 flops in a chain of
-// dependent exp/log/div/sqrt/pow, and the lanes of a warp advance in lock
-// step until the slowest is done: the serial step chain of the longest lane
-// bounds the launch. The design follows from that: one thread per lane with
-// the whole carry in registers (arrays sized by the compile-time caps
-// kMaxSpecies / kMaxReactions, every loop unrolled to the cap and guarded by
-// the runtime ns / nr, so no array index is dynamic), the weights and the
-// Woodbury coefficients woodc[r*nr+q, j] = w_in[j, r] w_out[j, q] staged once
-// per block in shared memory, 32 threads per block so that lanes spread over
-// as many SMs as the batch allows, and history stores in which neighbouring
-// lanes write neighbouring addresses. The temperature is kept apart from the
-// species (Vec::t) so that it needs no dynamic index either.
+// What bounds it: not bytes and not flops. A lane's steps form one serial
+// chain of dependent log/exp/div/sqrt/pow, and the launch lasts as long as
+// its longest lane (~60 steps at case2's shapes). At case2's B = 30 a
+// thread per lane made the whole solve one warp on one SM scheduler, which
+// issued a step's thousands of instructions one by one.
 //
-// A lane leaves its loop when it is done or failed, or after max_steps
-// iterations. That is the JAX kernel's global early exit per lane: there a
-// finished lane's carry is frozen and its rows are written with accepted = 0,
-// here its rows are not written at all; the wrapper zeroes accepted and the
-// post-pass masks every history with it.
+// The design shortens what one thread issues per step:
+// - A group of G threads (8, or 16 for ns + 1 > 8) carries one lane.
+//   Thread c owns state component c (species c, the temperature at
+//   c = ns) and reaction c (c < nr): its log, its exp, its dlog division,
+//   its error ratio and its history stores. At B = 30 that is eight warps.
+// - Every dot product gathers its terms from the group by __shfl_sync and
+//   sums them in one thread in the order of the one-thread version, j = 0
+//   .. ns, so the sums round as before. The per-lane scalars (dt, hd, the
+//   nr x nr Woodbury inverse, err, pow, the status) are computed the same
+//   way in every thread of the group.
+// - Loops are unrolled over compile-time bounds: (NS, NR) = (6, 3), case2's
+//   shape, is one instantiation with constant weight indices and no guarded
+//   iterations; NS = NR = 0 takes (ns, nr) at launch and unrolls to the caps
+//   kMaxSpecies / kMaxReactions with guards. Each thread keeps its own
+//   weights in registers: its reaction's orders, its species' row of w_out
+//   and its reaction's Woodbury coefficients woodc[c, q, j] =
+//   w_in[j, c] w_out[j, q].
+// - A lane that is done stays in the loop, its state and stores frozen,
+//   until no lane of its warp runs (a warp vote), so every shuffle names
+//   the whole warp; lanes past the batch copy the last lane and never
+//   store. That is the JAX kernel's global early exit per warp. Unvisited
+//   history rows are never written; the wrapper zeroes accepted and the
+//   post-pass masks every history with it.
 //
 // NaN handling: min, max and clip are compare-and-select that propagate NaN
 // as jnp.minimum / jnp.maximum do (fminf / fmaxf would drop it); a step whose
 // y1 or error estimate is not finite is rejected. Built without
-// --use_fast_math.
+// --use_fast_math: expf / logf / powf / sqrtf and IEEE division.
 //
-// Plain C interface, loaded with ctypes (crnn_tpu_torch/ops/rb23_solve_kernel.py).
+// Plain C interface, loaded with ctypes (crnn_tpu_torch/ops/rb23_solve_kernel.py,
+// whose solve_geometry gives the launch geometry).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kMaxThreads = 128;
 constexpr int kMaxSpecies = 8;
 constexpr int kMaxReactions = 4;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kRunning = 0, kDone = 1, kFailed = 2;
 constexpr double kInvRKcal = -1.0 / 1.98720425864083e-3;
 constexpr double kSqrt2 = 1.4142135623730951;  // sqrt(2) rounded to double
@@ -69,304 +82,129 @@ __device__ __forceinline__ T mx(T a, T b) { return (a > b || a != a) ? a : b; }
 template <typename T>
 __device__ __forceinline__ T mn(T a, T b) { return (a < b || a != a) ? a : b; }
 
-// A lane's state vector: species x[0..ns) and the temperature t.
-template <typename T>
-struct Vec {
-  T x[kMaxSpecies];
-  T t;
-};
+// One thread of a lane's group: its component c, its weights, and the
+// group's collective pieces of a step. NS, NR > 0 fix (ns, nr); 0 takes
+// them at launch. Every member that shuffles is called by the whole warp.
+template <typename T, int NS, int NR, int G>
+struct Group {
+  static constexpr int CS = NS > 0 ? NS : kMaxSpecies;    // species loops
+  static constexpr int CR = NR > 0 ? NR : kMaxReactions;  // reaction loops
 
-// Block-shared constants of one solve.
-template <typename T>
-struct Params {
-  const T* w_in;   // (ns+1, nr): w_in[j*nr + r]; row ns is the Ea feature
-  const T* w_b;    // (nr,)
-  const T* w_out;  // (ns, nr): w_out[i*nr + r]
-  const T* woodc;  // (nr*nr, ns): woodc[(r*nr + q)*ns + j]
-  int ns, nr;
+  int ns, nr, c;  // ns == NS and nr == NR where those are fixed
   T lb, ub, exp_cap;
-};
+  T wi[CS];      // w_in[j, c]: reaction c's orders
+  T wea, wb;     // w_in[ns, c] (the Ea feature) and w_b[c]
+  T wo[CR];      // w_out[c, r]: species c's stoichiometry
+  T wc[CR][CS];  // woodc[c, q, j] = w_in[j, c] * w_out[j, q], rounded
 
-// du = [w_out . rates, 0] and rates (the JAX kernel's rhs, :104-112)
-template <typename T>
-__device__ __forceinline__ void rhs(const Params<T>& p, const Vec<T>& y,
-                                    Vec<T>& du, T (&rates)[kMaxReactions]) {
-  const T inv_t = static_cast<T>(kInvRKcal) / y.t;
-  T logx[kMaxSpecies];
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j) {
-    if (j < p.ns) {
-      const T x = y.x[j];
-      logx[j] = log_t(x < p.lb ? p.lb : (x > p.ub ? p.ub : x));
+  __device__ __forceinline__ T at(T v, int j) const {
+    return __shfl_sync(kFullWarp, v, j, G);
+  }
+
+  __device__ void load(const T* __restrict__ w_in, const T* __restrict__ w_b,
+                       const T* __restrict__ w_out) {
+    const bool reaction = c < nr, species = c < ns;
+    wea = T(0);
+    wb = T(0);
+    if (reaction) {
+      wea = w_in[ns * nr + c];
+      wb = w_b[c];
     }
-  }
 #pragma unroll
-  for (int r = 0; r < kMaxReactions; ++r) {
-    if (r < p.nr) {
-      T z = T(0);
-#pragma unroll
-      for (int j = 0; j < kMaxSpecies; ++j)
-        if (j < p.ns) z += p.w_in[j * p.nr + r] * logx[j];
-      z = z + p.w_in[p.ns * p.nr + r] * inv_t + p.w_b[r];
-      rates[r] = exp_t(z > p.exp_cap ? p.exp_cap : z);
+    for (int j = 0; j < CS; ++j) {
+      wi[j] = T(0);
+      if (j < ns && reaction) wi[j] = w_in[j * nr + c];
     }
-  }
 #pragma unroll
-  for (int i = 0; i < kMaxSpecies; ++i) {
-    if (i < p.ns) {
-      T acc = T(0);
-#pragma unroll
-      for (int r = 0; r < kMaxReactions; ++r)
-        if (r < p.nr) acc += p.w_out[i * p.nr + r] * rates[r];
-      du.x[i] = acc;
+    for (int r = 0; r < CR; ++r) {
+      wo[r] = T(0);
+      if (r < nr && species) wo[r] = w_out[c * nr + r];
     }
-  }
-  du.t = T(0);
-}
-
-// Woodbury W-solve v + h d U M^-1 V v (the JAX kernel's wsolve, :174-184)
-template <typename T>
-__device__ __forceinline__ void wsolve(const Params<T>& p, const Vec<T>& v,
-                                       const T (&dlog)[kMaxSpecies], T dt_feat,
-                                       const T (&rates)[kMaxReactions],
-                                       const T (&minv)[kMaxReactions][kMaxReactions],
-                                       T hd, Vec<T>& out) {
-  T s[kMaxReactions];
-  const T vt = v.t * dt_feat;
 #pragma unroll
-  for (int r = 0; r < kMaxReactions; ++r) {
-    if (r < p.nr) {
-      T acc = T(0);
+    for (int q = 0; q < CR; ++q) {
 #pragma unroll
-      for (int j = 0; j < kMaxSpecies; ++j)
-        if (j < p.ns) acc += p.w_in[j * p.nr + r] * (v.x[j] * dlog[j]);
-      s[r] = rates[r] * (acc + p.w_in[p.ns * p.nr + r] * vt);
-    }
-  }
-  T xr[kMaxReactions];
-#pragma unroll
-  for (int r = 0; r < kMaxReactions; ++r) {
-    if (r < p.nr) {
-      T acc = T(0);
-#pragma unroll
-      for (int q = 0; q < kMaxReactions; ++q)
-        if (q < p.nr) acc += minv[r][q] * s[q];
-      xr[r] = acc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxSpecies; ++i) {
-    if (i < p.ns) {
-      T acc = T(0);
-#pragma unroll
-      for (int r = 0; r < kMaxReactions; ++r)
-        if (r < p.nr) acc += p.w_out[i * p.nr + r] * xr[r];
-      out.x[i] = v.x[i] + hd * acc;
-    }
-  }
-  out.t = v.t + hd * T(0);
-}
-
-// sqrt(mean((v / scale)^2)) over the ns+1 rows
-template <typename T>
-__device__ __forceinline__ T rms(const Params<T>& p, const Vec<T>& v,
-                                 const Vec<T>& scale) {
-  T acc = T(0);
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j) {
-    if (j < p.ns) {
-      const T r = v.x[j] / scale.x[j];
-      acc += r * r;
-    }
-  }
-  const T r = v.t / scale.t;
-  acc += r * r;
-  return sqrt_t(acc / static_cast<T>(p.ns + 1));
-}
-
-// Hairer error norm with non-finite ratios as inf (:114-118)
-template <typename T>
-__device__ __forceinline__ T err_norm(const Params<T>& p, const Vec<T>& err,
-                                      const Vec<T>& ya, const Vec<T>& yb,
-                                      T rtol, T atol) {
-  const T inf = static_cast<T>(INFINITY);
-  T acc = T(0);
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j) {
-    if (j < p.ns) {
-      T r = err.x[j] / (atol + rtol * mx(fabs(ya.x[j]), fabs(yb.x[j])));
-      r = isfinite(r) ? r : inf;
-      acc += r * r;
-    }
-  }
-  T r = err.t / (atol + rtol * mx(fabs(ya.t), fabs(yb.t)));
-  r = isfinite(r) ? r : inf;
-  acc += r * r;
-  return sqrt_t(acc / static_cast<T>(p.ns + 1));
-}
-
-template <typename T>
-__device__ __forceinline__ bool all_finite(const Params<T>& p, const Vec<T>& v) {
-  bool ok = isfinite(v.t);
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j)
-    if (j < p.ns) ok = ok && isfinite(v.x[j]);
-  return ok;
-}
-
-// out = a + c * b
-template <typename T>
-__device__ __forceinline__ void axpy(const Params<T>& p, const Vec<T>& a, T c,
-                                     const Vec<T>& b, Vec<T>& out) {
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j)
-    if (j < p.ns) out.x[j] = a.x[j] + c * b.x[j];
-  out.t = a.t + c * b.t;
-}
-
-template <typename T>
-__device__ __forceinline__ void store(const Params<T>& p, const Vec<T>& v,
-                                      T* __restrict__ hist, long long batch,
-                                      long long lane) {
-  // hist points at row i of a (K, ns+1, B) history
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j)
-    if (j < p.ns) hist[j * batch + lane] = v.x[j];
-  hist[p.ns * batch + lane] = v.t;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-arrh_rb23_solve_kernel(const T* __restrict__ y0, const T* __restrict__ w_in,
-                       const T* __restrict__ w_b, const T* __restrict__ w_out,
-                       T* __restrict__ t_hist, T* __restrict__ tn_hist,
-                       T* __restrict__ acc_hist, T* __restrict__ y_hist,
-                       T* __restrict__ yn_hist, T* __restrict__ f0_hist,
-                       T* __restrict__ f2_hist, int* __restrict__ status_out,
-                       int* __restrict__ nsteps_out, T* __restrict__ y_final,
-                       long long batch, int ns, int nr, int max_steps, double t0_d,
-                       double t1_d, double rtol_d, double atol_d, double lb,
-                       double ub, double exp_cap, double safety_d,
-                       double factor_min_d, double factor_max_d,
-                       double dtmin_d) {
-  // shared layout: w_in (ns1*nr) | w_b (nr) | w_out (ns*nr) | woodc (nr*nr*ns)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_win = reinterpret_cast<T*>(smem_raw);
-  T* s_wb = s_win + (ns + 1) * nr;
-  T* s_wout = s_wb + nr;
-  T* s_woodc = s_wout + ns * nr;
-  for (int i = threadIdx.x; i < (ns + 1) * nr; i += blockDim.x) s_win[i] = w_in[i];
-  for (int i = threadIdx.x; i < nr; i += blockDim.x) s_wb[i] = w_b[i];
-  for (int i = threadIdx.x; i < ns * nr; i += blockDim.x) s_wout[i] = w_out[i];
-  for (int i = threadIdx.x; i < nr * nr * ns; i += blockDim.x) {
-    const int rq = i / ns, j = i % ns;
-    s_woodc[i] = w_in[j * nr + rq / nr] * w_out[j * nr + rq % nr];
-  }
-  __syncthreads();
-
-  const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-
-  const Params<T> p{s_win, s_wb, s_wout, s_woodc, ns, nr, static_cast<T>(lb),
-                    static_cast<T>(ub), static_cast<T>(exp_cap)};
-  const T rtol = static_cast<T>(rtol_d), atol = static_cast<T>(atol_d);
-  const T t1 = static_cast<T>(t1_d), span = static_cast<T>(t1_d - t0_d);
-  const T safety = static_cast<T>(safety_d), dtmin = static_cast<T>(dtmin_d);
-  const T factor_min = static_cast<T>(factor_min_d);
-  const T factor_max = static_cast<T>(factor_max_d);
-  const T inf = static_cast<T>(INFINITY);
-  const T tiny = static_cast<T>(1e-30), small = static_cast<T>(1e-6);
-
-  Vec<T> y;
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j)
-    if (j < ns) y.x[j] = y0[lane * (ns + 1) + j];
-  y.t = y0[lane * (ns + 1) + ns];
-
-  T rates[kMaxReactions];
-  // ---- Hairer automatic initial dt (:126-141) ----------------------------
-  T dt;
-  {
-    Vec<T> f0, scale, probe, f1;
-#pragma unroll
-    for (int j = 0; j < kMaxSpecies; ++j)
-      if (j < ns) scale.x[j] = atol + rtol * fabs(y.x[j]);
-    scale.t = atol + rtol * fabs(y.t);
-    rhs(p, y, f0, rates);
-    const T d0 = rms(p, y, scale);
-    const T d1 = rms(p, f0, scale);
-    T h0 = (d0 < static_cast<T>(1e-5) || d1 < static_cast<T>(1e-5))
-               ? small : static_cast<T>(0.01) * d0 / mx(d1, tiny);
-    h0 = mn(h0, span);
-    axpy(p, y, h0, f0, probe);
-    rhs(p, probe, f1, rates);
-    axpy(p, f1, T(-1), f0, probe);  // f1 - f0
-    const T d2 = rms(p, probe, scale) / mx(h0, tiny);
-    const T dmax = mx(d1, d2);
-    const T h1 = dmax <= static_cast<T>(1e-15)
-                     ? mx(small, h0 * static_cast<T>(1e-3))
-                     : pow_t(static_cast<T>(0.01) / mx(dmax, tiny),
-                             static_cast<T>(1.0 / 3.0));
-    dt = mn(mn(static_cast<T>(100.0) * h0, h1), span);
-  }
-
-  T t = static_cast<T>(t0_d);
-  int status = kRunning;
-  int n_steps = 0;
-  for (int i = 0; i < max_steps && status == kRunning; ++i) {
-    const T t_rem = t1 - t;
-    const bool clipped = dt >= t_rem;
-    dt = mn(dt, t_rem);
-    dt = mx(dt, T(0));
-    const T hd = dt * static_cast<T>(kD);
-
-    // ---- value + low-rank Jacobian factors, Woodbury inner matrix --------
-    Vec<T> f0;
-    rhs(p, y, f0, rates);
-    T dlog[kMaxSpecies];
-#pragma unroll
-    for (int j = 0; j < kMaxSpecies; ++j) {
-      if (j < ns) {
-        const T x = y.x[j];
-        const T xc = x < p.lb ? p.lb : (x > p.ub ? p.ub : x);
-        dlog[j] = ((x > p.lb && x < p.ub) ? T(1) : T(0)) / xc;
+      for (int j = 0; j < CS; ++j) {
+        wc[q][j] = T(0);
+        if (q < nr && j < ns && reaction) wc[q][j] = wi[j] * w_out[j * nr + q];
       }
     }
-    const T dt_feat = static_cast<T>(-kInvRKcal) / (y.t * y.t);
-    T aug[kMaxReactions][kMaxReactions];
-    T minv[kMaxReactions][kMaxReactions];
+  }
+
+  // du_c = (w_out . rates)_c, 0 at the temperature; rate = rates_c (the
+  // JAX kernel's rhs, :104-112)
+  __device__ __forceinline__ void rhs(T yc, T& du, T& rate) const {
+    const T inv_t = static_cast<T>(kInvRKcal) / at(yc, ns);
+    const T logx = log_t(yc < lb ? lb : (yc > ub ? ub : yc));
+    T z = T(0);
 #pragma unroll
-    for (int r = 0; r < kMaxReactions; ++r) {
+    for (int j = 0; j < CS; ++j)
+      if (j < ns) z += wi[j] * at(logx, j);
+    z = z + wea * inv_t + wb;
+    rate = exp_t(z > exp_cap ? exp_cap : z);
+    T acc = T(0);
 #pragma unroll
-      for (int q = 0; q < kMaxReactions; ++q) {
+    for (int r = 0; r < CR; ++r)
+      if (r < nr) acc += wo[r] * at(rate, r);
+    du = c < ns ? acc : T(0);
+  }
+
+  // J's column factor of component c: dlog_c for a species, dt_feat =
+  // 1 / (R T^2) at the temperature (:160-165)
+  __device__ __forceinline__ T column_factor(T yc) const {
+    const T xc = yc < lb ? lb : (yc > ub ? ub : yc);
+    const T num = c < ns ? ((yc > lb && yc < ub) ? T(1) : T(0))
+                         : static_cast<T>(-kInvRKcal);
+    return num / (c < ns ? xc : yc * yc);
+  }
+
+  // M^-1 of M = I - hd V U, in every thread: row c of M (c < nr) from this
+  // thread's coefficients, broadcast, then Gauss-Jordan without pivoting
+  // (:167-172, _inv_rows :59-82)
+  __device__ __forceinline__ void inverse(T fac, T rate, T hd,
+                                          T (&minv)[CR][CR]) const {
+    T dlog[CS];
+#pragma unroll
+    for (int j = 0; j < CS; ++j)
+      if (j < ns) dlog[j] = at(fac, j);
+    T row[CR];
+#pragma unroll
+    for (int q = 0; q < CR; ++q) {
+      if (q < nr) {
+        T vu = T(0);
+#pragma unroll
+        for (int j = 0; j < CS; ++j)
+          if (j < ns) vu += wc[q][j] * dlog[j];
+        row[q] = (c == q ? T(1) : T(0)) - hd * (rate * vu);
+      }
+    }
+    T aug[CR][CR];
+#pragma unroll
+    for (int r = 0; r < CR; ++r) {
+#pragma unroll
+      for (int q = 0; q < CR; ++q) {
         if (r < nr && q < nr) {
-          T vu = T(0);
-#pragma unroll
-          for (int j = 0; j < kMaxSpecies; ++j)
-            if (j < ns) vu += p.woodc[(r * nr + q) * ns + j] * dlog[j];
-          aug[r][q] = (r == q ? T(1) : T(0)) - hd * (rates[r] * vu);
+          aug[r][q] = at(row[q], r);
           minv[r][q] = r == q ? T(1) : T(0);
         }
       }
     }
-    // Gauss-Jordan without pivoting (_inv_rows, :59-82)
 #pragma unroll
-    for (int col = 0; col < kMaxReactions; ++col) {
+    for (int col = 0; col < CR; ++col) {
       if (col < nr) {
         const T inv_piv = T(1) / aug[col][col];
 #pragma unroll
-        for (int q = 0; q < kMaxReactions; ++q) {
+        for (int q = 0; q < CR; ++q) {
           if (q < nr) {
             aug[col][q] = aug[col][q] * inv_piv;
             minv[col][q] = minv[col][q] * inv_piv;
           }
         }
 #pragma unroll
-        for (int r = 0; r < kMaxReactions; ++r) {
+        for (int r = 0; r < CR; ++r) {
           if (r < nr && r != col) {
             const T f = aug[r][col];
 #pragma unroll
-            for (int q = 0; q < kMaxReactions; ++q) {
+            for (int q = 0; q < CR; ++q) {
               if (q < nr) {
                 aug[r][q] = aug[r][q] - f * aug[col][q];
                 minv[r][q] = minv[r][q] - f * minv[col][q];
@@ -376,70 +214,200 @@ arrh_rb23_solve_kernel(const T* __restrict__ y0, const T* __restrict__ w_in,
         }
       }
     }
+  }
 
-    // ---- three stages (:186-192) -----------------------------------------
-    Vec<T> k1, k2, k3, f1, f2, y1, tmp;
-    T rates_s[kMaxReactions];
-    wsolve(p, f0, dlog, dt_feat, rates, minv, hd, k1);
-    axpy(p, y, static_cast<T>(0.5) * dt, k1, tmp);
-    rhs(p, tmp, f1, rates_s);
-    axpy(p, f1, T(-1), k1, tmp);  // f1 - k1
-    wsolve(p, tmp, dlog, dt_feat, rates, minv, hd, k2);
-    axpy(p, k2, T(1), k1, k2);    // + k1
-    axpy(p, y, dt, k2, y1);
-    rhs(p, y1, f2, rates_s);
+  // component c of the Woodbury W-solve v + hd U M^-1 V v (:174-184)
+  __device__ __forceinline__ T wsolve(T v, T fac, T rate,
+                                      const T (&minv)[CR][CR], T hd) const {
+    const T vd = v * fac;
+    T acc = T(0);
 #pragma unroll
-    for (int j = 0; j < kMaxSpecies; ++j)
-      if (j < ns)
-        tmp.x[j] = f2.x[j] - static_cast<T>(kE32) * (k2.x[j] - f1.x[j])
-                   - T(2) * (k1.x[j] - f0.x[j]);
-    tmp.t = f2.t - static_cast<T>(kE32) * (k2.t - f1.t) - T(2) * (k1.t - f0.t);
-    wsolve(p, tmp, dlog, dt_feat, rates, minv, hd, k3);
-    const T dt6 = dt / T(6);
-    Vec<T> y_err;
+    for (int j = 0; j < CS; ++j)
+      if (j < ns) acc += wi[j] * at(vd, j);
+    const T s = rate * (acc + wea * at(vd, ns));
+    T sq[CR];
 #pragma unroll
-    for (int j = 0; j < kMaxSpecies; ++j)
-      if (j < ns) y_err.x[j] = dt6 * (k1.x[j] - T(2) * k2.x[j] + k3.x[j]);
-    y_err.t = dt6 * (k1.t - T(2) * k2.t + k3.t);
+    for (int q = 0; q < CR; ++q)
+      if (q < nr) sq[q] = at(s, q);
+    T u = T(0);
+#pragma unroll
+    for (int r = 0; r < CR; ++r) {
+      if (r < nr) {
+        T xr = T(0);
+#pragma unroll
+        for (int q = 0; q < CR; ++q)
+          if (q < nr) xr += minv[r][q] * sq[q];
+        u += wo[r] * xr;
+      }
+    }
+    return v + hd * (c < ns ? u : T(0));
+  }
 
-    // ---- error, acceptance, step-endpoint histories (:194-211) -----------
-    const bool ok = all_finite(p, y1) && all_finite(p, y_err);
-    const T err = ok ? err_norm(p, y_err, y, y1, rtol, atol) : inf;
+  // sqrt(mean(r^2)) over the ns + 1 components, summed in component order
+  __device__ __forceinline__ T rms(T r) const {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < CS; ++j) {
+      if (j < ns) {
+        const T rj = at(r, j);
+        acc += rj * rj;
+      }
+    }
+    const T rt = at(r, ns);
+    acc += rt * rt;
+    return sqrt_t(acc / static_cast<T>(ns + 1));
+  }
+
+  // true when ok holds for every component of the lane
+  __device__ __forceinline__ bool all(bool ok) const {
+    int v = (c > ns || ok) ? 1 : 0;
+#pragma unroll
+    for (int o = G / 2; o > 0; o /= 2) v &= __shfl_xor_sync(kFullWarp, v, o, G);
+    return v != 0;
+  }
+};
+
+template <typename T, int NS, int NR, int G>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+arrh_rb23_solve_kernel(const T* __restrict__ y0, const T* __restrict__ w_in,
+                       const T* __restrict__ w_b, const T* __restrict__ w_out,
+                       T* __restrict__ t_hist, T* __restrict__ tn_hist,
+                       T* __restrict__ acc_hist, T* __restrict__ y_hist,
+                       T* __restrict__ yn_hist, T* __restrict__ f0_hist,
+                       T* __restrict__ f2_hist, int* __restrict__ status_out,
+                       int* __restrict__ nsteps_out, T* __restrict__ y_final,
+                       long long batch, int ns_rt, int nr_rt, int max_steps,
+                       double t0_d, double t1_d, double rtol_d, double atol_d,
+                       double lb, double ub, double exp_cap, double safety_d,
+                       double factor_min_d, double factor_max_d,
+                       double dtmin_d) {
+  using Grp = Group<T, NS, NR, G>;
+  Grp g;
+  g.ns = NS > 0 ? NS : ns_rt;
+  g.nr = NR > 0 ? NR : nr_rt;
+  g.c = static_cast<int>(threadIdx.x % G);
+  g.lb = static_cast<T>(lb);
+  g.ub = static_cast<T>(ub);
+  g.exp_cap = static_cast<T>(exp_cap);
+  g.load(w_in, w_b, w_out);
+  const int ns = g.ns, c = g.c;
+  const int ns1 = ns + 1;
+
+  const long long lane = static_cast<long long>(blockIdx.x) * (blockDim.x / G)
+                         + threadIdx.x / G;
+  const bool live = lane < batch;
+  const long long src = live ? lane : batch - 1;
+
+  const T rtol = static_cast<T>(rtol_d), atol = static_cast<T>(atol_d);
+  const T t1 = static_cast<T>(t1_d), span = static_cast<T>(t1_d - t0_d);
+  const T safety = static_cast<T>(safety_d), dtmin = static_cast<T>(dtmin_d);
+  const T factor_min = static_cast<T>(factor_min_d);
+  const T factor_max = static_cast<T>(factor_max_d);
+  const T inf = static_cast<T>(INFINITY);
+  const T tiny = static_cast<T>(1e-30), small = static_cast<T>(1e-6);
+
+  // this thread's component of y; a thread past ns + 1 holds a harmless 1
+  T y = c < ns1 ? y0[src * ns1 + c] : T(1);
+
+  // ---- Hairer automatic initial dt (:126-141) ------------------------------
+  T dt;
+  {
+    const T scale = atol + rtol * fabs(y);
+    T f0, f1, rate;
+    g.rhs(y, f0, rate);
+    const T d0 = g.rms(y / scale);
+    const T d1 = g.rms(f0 / scale);
+    T h0 = (d0 < static_cast<T>(1e-5) || d1 < static_cast<T>(1e-5))
+               ? small : static_cast<T>(0.01) * d0 / mx(d1, tiny);
+    h0 = mn(h0, span);
+    g.rhs(y + h0 * f0, f1, rate);
+    const T d2 = g.rms((f1 + T(-1) * f0) / scale) / mx(h0, tiny);
+    const T dmax = mx(d1, d2);
+    const T h1 = dmax <= static_cast<T>(1e-15)
+                     ? mx(small, h0 * static_cast<T>(1e-3))
+                     : pow_t(static_cast<T>(0.01) / mx(dmax, tiny),
+                             static_cast<T>(1.0 / 3.0));
+    dt = mn(mn(static_cast<T>(100.0) * h0, h1), span);
+  }
+
+  T t = static_cast<T>(t0_d);
+  int status = live ? kRunning : kDone;
+  int n_steps = 0;
+  for (int i = 0; i < max_steps; ++i) {
+    const bool running = status == kRunning;
+    if (!__any_sync(kFullWarp, running)) break;
+    const T t_rem = t1 - t;
+    const bool clipped = dt >= t_rem;
+    T h = mn(dt, t_rem);
+    h = mx(h, T(0));
+    const T hd = h * static_cast<T>(kD);
+
+    // ---- value, low-rank Jacobian factors, Woodbury inverse --------------
+    T f0, rate;
+    g.rhs(y, f0, rate);
+    const T fac = g.column_factor(y);
+    T minv[Grp::CR][Grp::CR];
+    g.inverse(fac, rate, hd, minv);
+
+    // ---- three stages (:186-192) -------------------------------------------
+    T f1, f2, rate_s;
+    const T k1 = g.wsolve(f0, fac, rate, minv, hd);
+    g.rhs(y + (static_cast<T>(0.5) * h) * k1, f1, rate_s);
+    T k2 = g.wsolve(f1 + T(-1) * k1, fac, rate, minv, hd);
+    k2 = k2 + T(1) * k1;
+    const T y1 = y + h * k2;
+    g.rhs(y1, f2, rate_s);
+    const T k3 = g.wsolve(
+        f2 - static_cast<T>(kE32) * (k2 - f1) - T(2) * (k1 - f0), fac, rate,
+        minv, hd);
+    const T dt6 = h / T(6);
+    const T y_err = dt6 * (k1 - T(2) * k2 + k3);
+
+    // ---- error, acceptance, step-endpoint histories (:194-211) ------------
+    const bool ok = g.all(isfinite(y1) && isfinite(y_err));
+    T ratio = y_err / (atol + rtol * mx(fabs(y), fabs(y1)));
+    ratio = isfinite(ratio) ? ratio : inf;
+    const T norm = g.rms(ratio);
+    const T err = ok ? norm : inf;
     const bool accept = err <= T(1);
-    const T t_new = t + dt;
-    const long long row = static_cast<long long>(i) * batch + lane;
-    t_hist[row] = t;
-    tn_hist[row] = t_new;
-    acc_hist[row] = accept ? T(1) : T(0);
-    const long long vrow = static_cast<long long>(i) * (ns + 1) * batch;
-    store(p, y, y_hist + vrow, batch, lane);
-    store(p, y1, yn_hist + vrow, batch, lane);
-    store(p, f0, f0_hist + vrow, batch, lane);
-    store(p, f2, f2_hist + vrow, batch, lane);
+    const T t_new = t + h;
+    if (running) {
+      const long long row = static_cast<long long>(i) * batch + lane;
+      if (c == 0) t_hist[row] = t;
+      if (c == 1) tn_hist[row] = t_new;
+      if (c == 2) acc_hist[row] = accept ? T(1) : T(0);
+      if (c < ns1) {
+        const long long v = (static_cast<long long>(i) * ns1 + c) * batch + lane;
+        y_hist[v] = y;
+        yn_hist[v] = y1;
+        f0_hist[v] = f0;
+        f2_hist[v] = f2;
+      }
+    }
 
-    // ---- I-controller and status (:214-233) ------------------------------
+    // ---- I-controller and status (:214-233) --------------------------------
     const T errc = mx(err, static_cast<T>(1e-10));
     T factor = safety * pow_t(errc, static_cast<T>(-1.0 / 3.0));
     factor = mn(mx(factor, factor_min), accept ? factor_max : T(1));
-    const T dt_next = dt * factor;
-    status = (accept && clipped) ? kDone
-                                 : (dt_next < dtmin ? kFailed : kRunning);
-    if (accept) {
-      t = t_new;
-#pragma unroll
-      for (int j = 0; j < kMaxSpecies; ++j)
-        if (j < ns) y.x[j] = isfinite(y1.x[j]) ? y1.x[j] : T(0);
-      y.t = isfinite(y1.t) ? y1.t : T(0);
+    const T dt_next = h * factor;
+    if (running) {
+      status = (accept && clipped) ? kDone
+                                   : (dt_next < dtmin ? kFailed : kRunning);
+      if (accept) {
+        t = t_new;
+        y = isfinite(y1) ? y1 : T(0);
+      }
+      dt = dt_next;
+      ++n_steps;
     }
-    dt = dt_next;
-    ++n_steps;
   }
-  status_out[lane] = status;
-  nsteps_out[lane] = n_steps;
-#pragma unroll
-  for (int j = 0; j < kMaxSpecies; ++j)
-    if (j < ns) y_final[lane * (ns + 1) + j] = y.x[j];
-  y_final[lane * (ns + 1) + ns] = y.t;
+  if (live) {
+    if (c == 0) {
+      status_out[lane] = status;
+      nsteps_out[lane] = n_steps;
+    }
+    if (c < ns1) y_final[lane * ns1 + c] = y;
+  }
 }
 
 template <typename T>
@@ -449,16 +417,23 @@ int launch(const void* y0, const void* w_in, const void* w_b, const void* w_out,
            void* n_steps, void* y_final, long long batch, int ns, int nr,
            int max_steps, double t0, double t1, double rtol, double atol,
            double lb, double ub, double exp_cap, double safety,
-           double factor_min, double factor_max, double dtmin, void* stream) {
+           double factor_min, double factor_max, double dtmin, int group,
+           int lanes, void* stream) {
+  // the group is 8 or 16 threads (a power of two that covers ns + 1, with
+  // an instantiation); a block holds whole warps within kMaxThreads
+  const long long threads = static_cast<long long>(group) * lanes;
   if (ns < 1 || ns > kMaxSpecies || nr < 1 || nr > kMaxReactions || batch < 0 ||
-      max_steps < 1)
+      max_steps < 1 || (group != 8 && group != 16) || group < ns + 1 ||
+      lanes < 1 || threads % 32 != 0 || threads > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const long long blocks = (batch + kThreads - 1) / kThreads;
-  const size_t smem =
-      static_cast<size_t>((ns + 1) * nr + nr + ns * nr + nr * nr * ns) * sizeof(T);
-  arrh_rb23_solve_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = (batch + lanes - 1) / lanes;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = group == 16                  ? arrh_rb23_solve_kernel<T, 0, 0, 16>
+                : (ns == 6 && nr == 3)       ? arrh_rb23_solve_kernel<T, 6, 3, 8>
+                                             : arrh_rb23_solve_kernel<T, 0, 0, 8>;
+  kernel<<<static_cast<unsigned>(blocks), static_cast<unsigned>(threads), 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y0), static_cast<const T*>(w_in),
       static_cast<const T*>(w_b), static_cast<const T*>(w_out),
       static_cast<T*>(t_hist), static_cast<T*>(tn_hist),
@@ -482,11 +457,13 @@ extern "C" {
            void* status, void* n_steps, void* y_final, long long batch, int ns, \
            int nr, int max_steps, double t0, double t1, double rtol,            \
            double atol, double lb, double ub, double exp_cap, double safety,    \
-           double factor_min, double factor_max, double dtmin, void* stream) {  \
+           double factor_min, double factor_max, double dtmin, int group,       \
+           int lanes, void* stream) {                                           \
     return launch<T>(y0, w_in, w_b, w_out, t_hist, tn_hist, acc_hist, y_hist,   \
                      yn_hist, f0_hist, f2_hist, status, n_steps, y_final,       \
                      batch, ns, nr, max_steps, t0, t1, rtol, atol, lb, ub,      \
-                     exp_cap, safety, factor_min, factor_max, dtmin, stream);   \
+                     exp_cap, safety, factor_min, factor_max, dtmin, group,     \
+                     lanes, stream);                                            \
   }
 
 ARRH_RB23_SOLVE_ENTRY(arrh_rb23_solve_f32, float)

@@ -18,7 +18,9 @@ eval pass uses the ``while`` driver, and so does the port's.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -31,10 +33,37 @@ from crnn_tpu_torch.ops.crnn_kernels import (
     SUFFIX, arrhenius_rhs_batched_reference,
     arrhenius_rhs_jac_factors_reference, check_kernel_inputs)
 
-# compile-time caps of the kernel's per-lane register arrays
+# compile-time caps of the kernel's per-thread register arrays
 # (csrc/arrh_rb23_solve.cu kMaxSpecies / kMaxReactions)
 _MAX_NS = 8
 _MAX_NR = 4
+# the launch: warps a block at most (kMaxThreads = 128 threads), and the
+# card's SMs, over which the warps of a small batch are spread
+_SOLVE_WARPS = 4
+_SMS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def solve_geometry(batch: int, ns: int, nr: int, itemsize: int):
+    """(group, lanes, threads, blocks) of the whole-solve kernel
+    (``csrc/arrh_rb23_solve.cu``). A group of ``group`` threads carries one
+    lane, one thread per state component (ns + 1 of them) and reaction
+    (nr <= 4): 8 threads, or 16 where ns + 1 > 8. A block holds ``lanes``
+    lanes, ``threads`` = group * lanes, in whole warps: one warp a block
+    while the batch's warps fit one a SM, so that each runs alone on its
+    SM's scheduler, and up to ``_SOLVE_WARPS`` where there are more.
+    ``blocks`` = ceil(B / lanes). ``itemsize`` (4 or 8) does not change the
+    geometry: every instantiation keeps its carry in registers within the
+    launch bound of 128 threads. The C launcher refuses a group that is not
+    8 or 16 or does not cover ns + 1, no lanes, and threads that are not
+    whole warps within 128."""
+    if itemsize not in (4, 8):
+        raise ValueError(f"solve_geometry: itemsize {itemsize}")
+    group = 8 if ns + 1 <= 8 else 16
+    per_warp = 32 // group
+    warps = max(1, -(-batch // per_warp))
+    lanes = per_warp * min(_SOLVE_WARPS, -(-warps // _SMS))
+    return group, lanes, group * lanes, -(-batch // lanes)
 
 
 def _inv_rows(m_rows, nr):
@@ -158,16 +187,37 @@ def arrh_rb23_solve_reference(y0, w_in, w_b, w_out, *, max_steps, t0, t1,
     return t_h, tn_h, acc_h, y_h, yn_h, f0_h, f2_h, status, n_steps, y
 
 
+@functools.cache
 def _kernel_fn(dtype):
+    """The ctypes function of the kernel for ``dtype``, bound once: 14
+    pointers, B, ns, nr, max_steps, 11 solver constants, the geometry's
+    group and lanes, and the stream."""
     fn = getattr(_build.load("arrh_rb23_solve"),
                  f"arrh_rb23_solve_{SUFFIX[dtype]}")
-    if fn.argtypes is None:
-        ptr, dbl = ctypes.c_void_p, ctypes.c_double
-        fn.argtypes = ([ptr] * 14 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int]
-                       + [dbl] * 11 + [ptr])
-        fn.restype = ctypes.c_int
+    ptr, dbl = ctypes.c_void_p, ctypes.c_double
+    fn.argtypes = ([ptr] * 14 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int]
+                   + [dbl] * 11 + [ctypes.c_int, ctypes.c_int, ptr])
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(y0, weights, outs, max_steps, consts, geometry):
+    """Launch the kernel on y0, (w_in, w_b, w_out) and the ten ``outs`` on
+    the current stream, with the 11 solver constants ``consts`` (t0, t1,
+    rtol, atol, lb, ub, exp_cap, safety, factor_min, factor_max, dtmin) and
+    ``geometry`` (group, lanes) from ``solve_geometry``; raises on a CUDA
+    error."""
+    ns, nr = weights[-1].shape
+    index = y0.device.index
+    on_current = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_current else torch.cuda.device(index):
+        rc = _kernel_fn(y0.dtype)(
+            y0.data_ptr(), *(w.data_ptr() for w in weights),
+            *(o.data_ptr() for o in outs), y0.shape[0], ns, nr, max_steps,
+            *consts, *geometry, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"arrh_rb23_solve kernel launch failed: cudaError {rc}")
 
 
 def arrh_rb23_solve(y0, w_in, w_b, w_out, *, max_steps, t0, t1, rtol, atol,
@@ -199,37 +249,40 @@ def arrh_rb23_solve(y0, w_in, w_b, w_out, *, max_steps, t0, t1, rtol, atol,
     k = max_steps
     t0_, t1_ = float(t0), float(t1)
     dtmin = float(dtmin_frac) * (t1_ - t0_)
-
-    def hist(*shape):
-        if hist_fill is None:
-            return torch.empty(shape, dtype=y0.dtype, device=y0.device)
-        return torch.full(shape, hist_fill, dtype=y0.dtype, device=y0.device)
-
-    t_h, tn_h = hist(k, b), hist(k, b)
-    acc_h = torch.zeros((k, b), dtype=y0.dtype, device=y0.device)
-    y_h, yn_h, f0_h, f2_h = (hist(k, ns1, b) for _ in range(4))
-    status = torch.empty((b,), dtype=torch.int32, device=y0.device)
-    n_steps = torch.empty((b,), dtype=torch.int32, device=y0.device)
-    y_fin = torch.empty_like(y0)
+    # one buffer for the float outputs and one for the int pair: two
+    # allocations a call instead of ten
+    sizes = [k * b] * 3 + [k * ns1 * b] * 4 + [b * ns1]
+    buf = torch.empty(sum(sizes), dtype=y0.dtype, device=y0.device)
+    if hist_fill is not None:
+        buf.fill_(hist_fill)
+    t_h, tn_h, acc_h, y_h, yn_h, f0_h, f2_h, y_fin = buf.split(sizes)
+    acc_h.zero_()
+    status, n_steps = torch.empty((2, b), dtype=torch.int32,
+                                  device=y0.device)
     weights = [w.contiguous() for w in (w_in, w_b, w_out)]
-    outs = (t_h, tn_h, acc_h, y_h, yn_h, f0_h, f2_h, status, n_steps, y_fin)
-    with torch.cuda.device(y0.device):
-        stream = torch.cuda.current_stream(y0.device).cuda_stream
-        rc = _kernel_fn(y0.dtype)(
-            y0.data_ptr(), *(w.data_ptr() for w in weights),
-            *(o.data_ptr() for o in outs), b, ns, nr, k, t0_, t1_,
-            float(rtol), float(atol), float(lb), float(ub), float(exp_cap),
-            float(safety), float(factor_min), float(factor_max), dtmin,
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"arrh_rb23_solve kernel launch failed: cudaError {rc}")
+    outs = (t_h.view(k, b), tn_h.view(k, b), acc_h.view(k, b),
+            *(h.view(k, ns1, b) for h in (y_h, yn_h, f0_h, f2_h)), status,
+            n_steps, y_fin.view(b, ns1))
+    if b == 0:
+        return _batch_major(outs)
+    group, lanes, _, _ = solve_geometry(b, ns, nr, y0.element_size())
+    _launch(y0, weights, outs, k,
+            (t0_, t1_, float(rtol), float(atol), float(lb), float(ub),
+             float(exp_cap), float(safety), float(factor_min),
+             float(factor_max), dtmin), (group, lanes))
     arrh_rb23_solve.launches += 1
-    return (t_h.T, tn_h.T, acc_h.T, y_h.permute(2, 0, 1), yn_h.permute(2, 0, 1),
-            f0_h.permute(2, 0, 1), f2_h.permute(2, 0, 1), status, n_steps,
-            y_fin)
+    return _batch_major(outs)
 
 
 arrh_rb23_solve.launches = 0
+
+
+def _batch_major(outs):
+    """The batch-major views of the kernel's step-major outputs."""
+    t_h, tn_h, acc_h, y_h, yn_h, f0_h, f2_h, status, n_steps, y_fin = outs
+    return (t_h.T, tn_h.T, acc_h.T, y_h.permute(2, 0, 1), yn_h.permute(2, 0, 1),
+            f0_h.permute(2, 0, 1), f2_h.permute(2, 0, 1), status, n_steps,
+            y_fin)
 
 
 def _dense_output(saveat, t0, y0, t_h, tn_h, acc_h, y_h, yn_h, f0_h, f2_h):

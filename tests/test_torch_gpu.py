@@ -190,23 +190,33 @@ def test_arrhenius_jac_op_gradients_on_card(cuda_device):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
-def _solve_case(batch, dtype, device, seed=0):
-    """case2-like initial states and reference-init weights, from numpy."""
+def _solve_case(batch, dtype, device, seed=0, ns=6, nr=3):
+    """case2-like initial states (two species in [0.2, 2.2], T in [323,
+    343] K) and reference-init weights, from numpy. At case2's shape the
+    log rate constants are raised by 1.3 so that steps get rejected; at the
+    other shapes the reference init's +0.8 with half its spread (0.05)
+    conditions the solve: one ulp of y0 moves the plain f64 solve by at
+    most ~2e-13 of a component's largest value at B=30 and 4099 (one-ulp
+    witness on the CPU), far inside the 1e-9 gate."""
     rng = np.random.default_rng(seed)
-    p = 0.1 * rng.normal(size=3 * 8 + 1)
-    p[:3] += 1.3           # fast enough kinetics that steps get rejected
-    p[21:24] += 0.8
+    shift, spread = (1.3, 0.1) if (ns, nr) == (6, 3) else (0.8, 0.05)
+    p = spread * rng.normal(size=nr * (ns + 2) + 1)
+    p[:nr] += shift
+    p[nr * (ns + 1):nr * (ns + 2)] += 0.8
     p[-1] = 0.1
-    u0 = np.zeros((batch, 7))
-    u0[:, :2] = rng.uniform(size=(batch, 2)) * 2.0 + 0.2
-    u0[:, 6] = rng.uniform(size=batch) * 20.0 + 323.0
-    w = p2vec_case2(torch.from_numpy(p.astype(dtype)).to(device), 6, 3)
+    u0 = np.zeros((batch, ns + 1))
+    k = min(2, ns)
+    u0[:, :k] = rng.uniform(size=(batch, k)) * 2.0 + 0.2
+    u0[:, ns] = rng.uniform(size=batch) * 20.0 + 323.0
+    w = p2vec_case2(torch.from_numpy(p.astype(dtype)).to(device), ns, nr)
     return torch.from_numpy(u0.astype(dtype)).to(device), w
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("batch", [30, 4099])
-def test_rb23_solve_kernel_matches_plain_version(cuda_device, dtype, batch):
+_SOLVE_CONSTS = dict(max_steps=128, t0=0.0, t1=50.0, rtol=1e-3, atol=1e-6,
+                     lb=LB, ub=UB)
+
+
+def _check_solve_kernel(u0, w):
     """The whole-solve kernel against its plain version, each state
     component's error over that component's largest value (T is constant
     at ~330 K and would hide the species in a ratio over all entries): in
@@ -215,27 +225,78 @@ def test_rb23_solve_kernel_matches_plain_version(cuda_device, dtype, batch):
     W-solve amplifies ulp differences of exp, log and pow to ~1e-10
     absolute, as one ulp of y0 does to the plain version). The kernel's
     histories start as NaN, which the post-pass must mask."""
-    u0, w = _solve_case(batch, dtype, cuda_device)
-    saveat = torch.linspace(0.0, 50.0, 50, dtype=u0.dtype, device=cuda_device)
-    consts = dict(max_steps=128, t0=0.0, t1=50.0, rtol=1e-3, atol=1e-6,
-                  lb=LB, ub=UB)
+    saveat = torch.linspace(0.0, 50.0, 50, dtype=u0.dtype, device=u0.device)
     before = rk.arrh_rb23_solve.launches
     out = rk.arrh_rb23_solve(u0, w.w_in, w.w_b, w.w_out, hist_fill=np.nan,
-                             **consts)
+                             **_SOLVE_CONSTS)
     torch.cuda.synchronize()
     assert rk.arrh_rb23_solve.launches == before + 1
-    ref = rk.arrh_rb23_solve_reference(u0, w.w_in, w.w_b, w.w_out, **consts)
+    ref = rk.arrh_rb23_solve_reference(u0, w.w_in, w.w_b, w.w_out,
+                                       **_SOLVE_CONSTS)
     ys = rk._dense_output(saveat, 0.0, u0, *out[:7])
     ys_ref = rk._dense_output(saveat, 0.0, u0, *ref[:7])
     assert bool(torch.isfinite(ys).all())
     assert torch.equal(out[7] == 1, ref[7] == 1)
     per_component = ((ys - ys_ref).abs().amax(dim=(0, 1))
                      / ys_ref.abs().amax(dim=(0, 1)))
-    if dtype == np.float32:
+    if u0.dtype == torch.float32:
         assert float(per_component.max()) < 5e-4, per_component
     else:
         assert torch.equal(out[7], ref[7]) and torch.equal(out[8], ref[8])
         assert float(per_component.max()) < 1e-9, per_component
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("batch", [30, 4099])
+def test_rb23_solve_kernel_matches_plain_version(cuda_device, dtype, batch):
+    _check_solve_kernel(*_solve_case(batch, dtype, cuda_device))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("ns,nr", [(6, 3), (1, 1), (3, 2), (7, 4), (8, 4)])
+@pytest.mark.parametrize("batch", [1, 31, 33])
+def test_rb23_solve_kernel_ragged_groups_and_shapes(cuda_device, dtype, batch,
+                                                    ns, nr):
+    """Ragged warps and blocks (B = 1, 31, 33 beside 30 and 4099 above) on
+    the compiled (6, 3) path and the runtime path ((1, 1), (3, 2), (7, 4),
+    and the caps (8, 4) with 16 threads a lane)."""
+    _check_solve_kernel(*_solve_case(batch, dtype, cuda_device, ns=ns, nr=nr))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("ns,nr", [(1, 1), (3, 2), (7, 4), (8, 4)])
+@pytest.mark.parametrize("batch", [30, 4099])
+def test_rb23_solve_kernel_runtime_path(cuda_device, dtype, batch, ns, nr):
+    _check_solve_kernel(*_solve_case(batch, dtype, cuda_device, ns=ns, nr=nr))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("ns,nr", [(ns, nr) for ns in range(1, 9)
+                                   for nr in range(1, 5)])
+def test_rb23_solve_kernel_every_shape_within_the_caps(cuda_device, dtype, ns,
+                                                       nr):
+    _check_solve_kernel(*_solve_case(3, dtype, cuda_device, ns=ns, nr=nr))
+
+
+def test_rb23_solve_kernel_refuses_a_bad_geometry(cuda_device):
+    """The launcher refuses, through its return code, no lanes, threads
+    that are not whole warps or above 128, and a group that is not 8 or 16
+    or does not cover ns + 1; an empty batch launches nothing."""
+    u0, w = _solve_case(33, np.float32, cuda_device)
+    k = 8
+    outs = ([torch.empty((k, 33), device=cuda_device) for _ in range(3)]
+            + [torch.empty((k, 7, 33), device=cuda_device) for _ in range(4)]
+            + [torch.empty(33, dtype=torch.int32, device=cuda_device)
+               for _ in range(2)] + [torch.empty_like(u0)])
+    consts = (0.0, 50.0, 1e-3, 1e-6, LB, UB, 32.0, 0.9, 0.2, 10.0, 5e-11)
+    weights = (w.w_in, w.w_b, w.w_out)
+    for bad in ((8, 0), (8, 3), (8, 20), (16, 16), (16, 1), (6, 16), (4, 8),
+                (32, 1), (12, 8)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            rk._launch(u0, weights, outs, k, consts, bad)
+    before = rk.arrh_rb23_solve.launches
+    out = rk.arrh_rb23_solve(u0[:0], *weights, **_SOLVE_CONSTS)
+    assert rk.arrh_rb23_solve.launches == before and out[7].shape == (0,)
 
 
 def test_rb23_solve_wrapper_checks_its_inputs(cuda_device):

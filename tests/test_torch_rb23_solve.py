@@ -8,7 +8,7 @@ sequence follows rounding, so ys agree within 5e-4 of each state
 component's largest value with equal success flags (the JAX package's bar
 for its kernel against its while driver, taken per component). The CUDA
 kernel itself is tested on the card by tests/test_torch_gpu.py and
-chip_smoke.py.
+chip_smoke.py; its launch geometry (``solve_geometry``) is tested here.
 """
 
 import math
@@ -160,3 +160,49 @@ def test_wrapper_rejects_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="unsupported device"):
         trk.arrh_rb23_solve(*args, max_steps=8, t0=0.0, t1=T1, rtol=RTOL,
                             atol=ATOL, lb=LB, ub=UB)
+
+
+@pytest.mark.parametrize("ns,nr", [(ns, nr) for ns in range(1, trk._MAX_NS + 1)
+                                   for nr in range(1, trk._MAX_NR + 1)])
+def test_solve_geometry_covers_every_batch_and_shape_with_whole_warps(ns, nr):
+    """Every B and (ns, nr) within the caps gets a group of 8 or 16 threads
+    (a power of two that covers the ns + 1 state components), blocks of
+    whole warps within 128 threads, and blocks that cover the batch with no
+    block left empty; f32 and f64 launch alike."""
+    for batch in (1, 2, 3, 4, 5, 7, 8, 29, 30, 31, 33, 64, 527, 528, 529,
+                  2112, 4099, 65536):
+        geo = trk.solve_geometry(batch, ns, nr, 4)
+        assert trk.solve_geometry(batch, ns, nr, 8) == geo
+        group, lanes, threads, blocks = geo
+        assert group in (8, 16) and group >= ns + 1
+        assert group & (group - 1) == 0 and (group == 8) == (ns + 1 <= 8)
+        assert lanes >= 1 and threads == group * lanes
+        assert threads % 32 == 0 and threads <= 128
+        assert blocks * lanes >= batch > (blocks - 1) * lanes
+
+
+def test_solve_geometry_spreads_a_small_batch_one_warp_a_block():
+    """case2's 30 lanes: 8 threads a lane, 4 lanes a warp, one warp a block
+    on 8 SMs; B=4099 fills 4 warps a block; the caps' ns = 8 take 16."""
+    assert trk.solve_geometry(30, 6, 3, 4) == (8, 4, 32, 8)
+    assert trk.solve_geometry(4099, 6, 3, 4) == (8, 16, 128, 257)
+    assert trk.solve_geometry(3, 8, 4, 8) == (16, 2, 32, 2)
+    with pytest.raises(ValueError, match="itemsize"):
+        trk.solve_geometry(30, 6, 3, 2)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_cpu_tensor_runs_the_plain_version_without_a_launch(dtype):
+    p, u0, _ = _case(b=3, seed=4, dtype=dtype, rate_shift=0.5)
+    tw = t_p2vec(torch.from_numpy(p), NS, NR)
+    consts = dict(max_steps=MAX_STEPS, t0=0.0, t1=T1, rtol=RTOL, atol=ATOL,
+                  lb=LB, ub=UB)
+    before = trk.arrh_rb23_solve.launches
+    got = trk.arrh_rb23_solve(torch.from_numpy(u0), tw.w_in, tw.w_b, tw.w_out,
+                              **consts)
+    want = trk.arrh_rb23_solve_reference(torch.from_numpy(u0), tw.w_in,
+                                         tw.w_b, tw.w_out, **consts)
+    assert trk.arrh_rb23_solve.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
