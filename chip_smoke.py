@@ -80,7 +80,21 @@ Phases, each printed with the seconds it took:
    stochastic horizons) through run_case, counters set to 0 just before
    and read just after (kernel 4 and kernel 5 launches); the kernel path
    against the plain path on the same params, perm and masks over a whole
-   epoch (loss, grad, eval losses, params) at rtol 1e-9.
+   epoch (loss, grad, eval losses, params) at rtol 1e-9;
+10. runner: per-lane case2 (``batch_major=False``, reverse mode) at
+   ``Case2Config()`` width, 2 f32 epochs through run_case with the counts
+   of kernels 1 and 2 set to 0 just before and read just after (each > 0),
+   and an f64 epoch on the kernel path against the plain path at rtol
+   1e-9, as phase 9; one sequential case2 epoch in forward mode (jacfwd
+   through the plain ops, as the JAX package takes its reference ops
+   there; the evaluation pass on the kernels) as the CLI runs it, with
+   kernel 1 counted (> 0), and one with the per-lane evaluation, kernels 1
+   and 2 counted (each > 0), both finite; one sequential case1 epoch
+   (kernel 4 counted, > 0); then the case2 CLI for 2 epochs and 2 more
+   with ``--restart --epochs-per-dispatch 2``: metrics.jsonl runs epochs
+   1-4, the checkpoint, best and p_opt.npy files exist, and every epoch's
+   losses and grad norm and the final checkpoint (the generator's state
+   among it) equal those of a 4-epoch uninterrupted run bit for bit.
 
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
@@ -487,16 +501,17 @@ def forward_losses(setup, params, perm, cfg):
     return train, evals
 
 
-def compare_epoch(name, a, b):
-    """Kernel path ``a`` against plain path ``b``: rtol 1e-4 of each entry,
-    plus 1e-4 of the largest entry for entries near 0 (a gradient component
-    can be ~0); fails the run if they disagree."""
+def compare_epoch(name, a, b, what="kernel", against="plain"):
+    """The ``what`` path's ``a`` against the ``against`` path's ``b``
+    (default: kernel path against plain path): rtol 1e-4 of
+    each entry, plus 1e-4 of the largest entry for entries near 0 (a
+    gradient component can be ~0); fails the run if they disagree."""
     tol = _EPOCH_RTOL * (b.abs() + b.abs().max())
     rel = float(((a - b).abs() / b.abs().max()).max())
     ok = bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= tol).all())
-    print(f"  kernel vs plain {name}: max rel err {rel:.3e} ok={ok}")
+    print(f"  {what} vs {against} {name}: max rel err {rel:.3e} ok={ok}")
     if not ok:
-        fail(f"kernel path {name} disagrees with the plain path")
+        fail(f"{what} path {name} disagrees with the {against} path")
 
 
 def rhs_jac_bound_ms(batch, ns, nr, dtype):
@@ -1420,6 +1435,125 @@ def run_robertson(gen) -> dict:
             "robertson_f64_epoch_plain_s": tp}
 
 
+def run_runner(gen) -> dict:
+    """Phase 10: the case runner and the rest of the Trainer on the card.
+    (a) per-lane case2 (``batch_major=False``, reverse mode): 2 f32 epochs
+    through run_case with kernels 1 and 2 counted, and an f64 epoch on the
+    kernel path against the plain path at rtol 1e-9; (b) sequential case2
+    (forward mode): one epoch as the CLI runs it and one with the per-lane
+    evaluation, kernels counted; (c) sequential case1: one epoch with
+    kernel 4 counted; (d) the case2 CLI for 2 epochs and then 2 more with
+    --restart in one 2-epoch chunk, against 4 epochs uninterrupted, bit for
+    bit. Returns the launch counts and epoch seconds by kernel row."""
+    from crnn_tpu_torch.cases import case1, case2
+    from crnn_tpu_torch.ops.crnn_kernels import (arrhenius_rhs_batched,
+                                                 arrhenius_rhs_jac_batched,
+                                                 crnn_rhs_batched)
+
+    out = {"arrhenius_rhs": {}, "arrhenius_rhs_jac": {}, "crnn_rhs": {}}
+    # (a) per-lane case2
+    cfg = case2.Case2Config(batch_major=False)
+    setup, _, hist, (n_rhs, n_jac) = train_case(
+        case2, cfg, 2, (arrhenius_rhs_batched, arrhenius_rhs_jac_batched))
+    out["arrhenius_rhs"].update(per_lane_case2_launches=n_rhs,
+                                per_lane_case2_epoch_s=hist["epoch_s"])
+    out["arrhenius_rhs_jac"].update(per_lane_case2_launches=n_jac,
+                                    per_lane_case2_epoch_s=hist["epoch_s"])
+    ds = setup.dataset
+    ds64 = ds._replace(**{k: getattr(ds, k).double() for k in (
+        "u0", "ys", "ys_clean", "ts", "yscale")})
+    perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
+    masks = torch.ones((cfg.n_exp_train, cfg.datasize), dtype=torch.float64)
+    tk, tp = compare_f64_epochs(case2, case2.Case2Config, ds64,
+                                setup.init_params.double(), perm, masks,
+                                "case2 per-lane", batch_major=False)
+    out["arrhenius_rhs_jac"].update(per_lane_case2_f64_epoch_kernel_s=tk,
+                                    per_lane_case2_f64_epoch_plain_s=tp)
+
+    # (b) sequential case2, forward mode: jacfwd through the plain ops (as
+    # the JAX package takes its reference ops), the evaluation pass on the
+    # kernels; as the CLI runs it (batch-major eval: kernel 1), then with
+    # the per-lane eval (kernels 1 and 2)
+    for batch_major, need in ((True, (arrhenius_rhs_batched,)),
+                              (False, (arrhenius_rhs_batched,
+                                       arrhenius_rhs_jac_batched))):
+        seq = case2.build(case2.Case2Config(mode="sequential",
+                                            batch_major=batch_major),
+                          dataset=ds)
+        counters = (arrhenius_rhs_batched, arrhenius_rhs_jac_batched)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, m = seq.trainer.epoch(seq.trainer.init(seq.init_params))
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        n_rhs, n_jac = (c.launches for c in counters)
+        label = "case2 sequential" + ("" if batch_major else " per-lane")
+        print(f"  {label} (grad_mode={seq.trainer.grad_mode}): 1 epoch "
+              f"{seq_s:.3f} s, loss_train {float(m.loss_train):.6e}, "
+              f"{state.opt_state.count} updates; launches "
+              f"arrhenius_rhs_batched={n_rhs}, "
+              f"arrhenius_rhs_jac_batched={n_jac}")
+        if not (math.isfinite(float(m.loss_train))
+                and math.isfinite(float(m.grad_norm))):
+            fail(f"{label}: non-finite loss or grad norm")
+        if state.opt_state.count != cfg.n_exp_train:
+            fail(f"{label}: {state.opt_state.count} updates")
+        if min(c.launches for c in need) == 0:
+            fail(f"{label}: a kernel of its path launched 0 times: "
+                 f"{n_rhs}, {n_jac}")
+        key = "sequential_case2" + ("" if batch_major else "_per_lane")
+        out["arrhenius_rhs"].update({f"{key}_launches": n_rhs,
+                                     f"{key}_epoch_s": seq_s})
+        if not batch_major:
+            out["arrhenius_rhs_jac"].update({f"{key}_launches": n_jac,
+                                             f"{key}_epoch_s": seq_s})
+
+    # (c) sequential case1: reverse mode, one lane per update
+    _, _, hist, (n_iso,) = train_case(
+        case1, case1.Case1Config(mode="sequential"), 1, (crnn_rhs_batched,))
+    out["crnn_rhs"].update(sequential_case1_launches=n_iso,
+                           sequential_case1_epoch_s=hist["epoch_s"])
+
+    # (d) the CLI: 2 epochs, then --restart for 2 in one chunk, against 4
+    with tempfile.TemporaryDirectory() as d:
+        base = Path(d)
+        case2.main(["--epochs", "2", "--out", str(base / "b")])
+        case2.main(["--epochs", "2", "--restart", "--epochs-per-dispatch",
+                    "2", "--out", str(base / "b")])
+        case2.main(["--epochs", "4", "--out", str(base / "a")])
+        rows = {k: [json.loads(line) for line in
+                    (base / k / "case2" / "metrics.jsonl").read_text()
+                    .splitlines()] for k in ("a", "b")}
+        missing = [f for f in ("checkpoint.pt", "best.pt", "p_opt.npy")
+                   if not (base / "b" / "case2" / f).exists()]
+        ckpts = {k: torch.load(base / k / "case2" / "checkpoint.pt",
+                               weights_only=True) for k in ("a", "b")}
+    epochs = [r["epoch"] for r in rows["b"]]
+    print(f"  CLI restart: metrics epochs {epochs}")
+    if epochs != [1, 2, 3, 4]:
+        fail(f"CLI restart: metrics.jsonl epochs {epochs}")
+    if missing:
+        fail(f"CLI restart: missing {missing}")
+    # bitwise: the f32 losses of every epoch, and the final checkpoint
+    # (params, Adam state, epoch and the generator's state, which differs
+    # if the restart lost the draws of the run it continues)
+    for name in ("loss_train", "loss_val", "grad_norm"):
+        same = [r[name] for r in rows["b"]] == [r[name] for r in rows["a"]]
+        print(f"  restart vs uninterrupted f32 {name}: bitwise equal {same}")
+        if not same:
+            fail(f"CLI restart: {name} differs from the uninterrupted run")
+    differ = [k for k, v in ckpts["a"].items() if not (
+        torch.equal(v, ckpts["b"][k]) if isinstance(v, torch.Tensor)
+        else v == ckpts["b"][k])]
+    print(f"  restart vs uninterrupted checkpoint: entries that differ "
+          f"{differ} of {sorted(ckpts['a'])}")
+    if differ:
+        fail(f"CLI restart: the final checkpoint differs in {differ}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -1553,6 +1687,12 @@ def main() -> int:
         rob = run_robertson(gen)
         iso_row["robertson_launches"] = rob.pop("rhs_launches")
         iso_jac_row.update(rob)
+
+    with phase("10 runner"):
+        runner = run_runner(gen)
+        kernel_row.update(runner["arrhenius_rhs"])
+        jac_row.update(runner["arrhenius_rhs_jac"])
+        iso_row.update(runner["crnn_rhs"])
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("library_ms: null for every kernel: no single PyTorch call computes "

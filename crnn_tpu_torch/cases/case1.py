@@ -1,16 +1,19 @@
-"""case1: isothermal synthetic CRNN (5 species / 4 reactions), batch-mode
-training epoch (port of crnn_tpu/cases/case1.py).
+"""case1: isothermal synthetic CRNN (5 species / 4 reactions) (port of
+crnn_tpu/cases/case1.py).
 
 30 experiments (20 train / 10 test) of a 4-reaction mass-action system with
 5% noise; sign-tied p2vec (w_in = clip(-w_out, 0, 2.5), bias offset
 b0 = -10); Tsit5 on the per-lane ``odesolve``, all experiments as lanes of
-one solve; scaled-MAE loss; Adam with coupled weight decay at a constant
-lr. On a CUDA device every Tsit5 stage evaluates the RHS through the
-isothermal kernel (``ops/csrc/crnn_rhs.cu``). The data are generated on the
+one solve (``mode='batch'``) or one lane per update (``mode='sequential'``,
+the reference's per-experiment updates, reverse mode as in JAX);
+scaled-MAE loss; Adam with coupled weight decay at a constant lr. On a
+CUDA device every Tsit5 stage evaluates the RHS through the isothermal
+kernel (``ops/csrc/crnn_rhs.cu``). The data are generated on the
 chosen device by the port's own solver. ``p_cutoff`` prunes |w_out| below
 the cutoff (case1_hardthreshhold.jl).
 
     python -m crnn_tpu_torch.cases.case1 --epochs 3 [--device cpu]
+        [--mode sequential] [--restart]
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ class Case1Config:
     p_cutoff: float = 0.0
     seed: int = 1234
     max_steps: int = 128
+    mode: str = "batch"        # 'batch' or 'sequential' (the reference's)
     dtype: str = "float32"
     device: str = "cuda"
     # True runs the plain PyTorch RHS in place of the CUDA kernel: the
@@ -101,32 +105,47 @@ def build(cfg: Case1Config = Case1Config(),
     solver = Tsit5()
     loss_fn = make_trajectory_loss(yscale=dataset.yscale)
 
-    def make_loss_batch(unroll):
-        def loss_batch(p, idxs, masks):
-            sol = odesolve(rhs, solver, dataset.u0[idxs], 0.0, t1, dataset.ts,
-                           args=weights_fn(p), rtol=cfg.rtol, atol=cfg.atol,
-                           max_steps=cfg.max_steps, unroll=unroll)
-            preds = clip(sol.ys, -cfg.ub, cfg.ub)
-            return loss_fn(preds, dataset.ys[idxs], masks)
-        return loss_batch
+    def predict_from_u0(p, u0_b, unroll):
+        sol = odesolve(rhs, solver, u0_b, 0.0, t1, dataset.ts,
+                       args=weights_fn(p), rtol=cfg.rtol, atol=cfg.atol,
+                       max_steps=cfg.max_steps, unroll=unroll)
+        return clip(sol.ys, -cfg.ub, cfg.ub)
+
+    def loss_on_data(p, u0_b, ys_b, masks, unroll="scan"):
+        return loss_fn(predict_from_u0(p, u0_b, unroll), ys_b, masks)
+
+    def make_loss_i_exp(unroll):
+        def loss_i_exp(p, idxs, masks):
+            return loss_on_data(p, dataset.u0[idxs], dataset.ys[idxs], masks,
+                                unroll)
+        return loss_i_exp
+
+    def predict(p, i_exp):
+        return predict_from_u0(p, dataset.u0[i_exp:i_exp + 1], "while")[0]
 
     if cfg.lr_decay >= 1.0:
         optimizer = adamw_like(cfg.lr, weight_decay=cfg.weight_decay,
                                grad_max=cfg.grad_max or None)
     else:
-        optimizer = expdecay_adamw(cfg.lr, cfg.lr_decay, cfg.lr_decay_epochs,
-                                   cfg.lr_floor, weight_decay=cfg.weight_decay,
-                                   grad_max=cfg.grad_max or None)
+        updates_per_epoch = (cfg.n_exp_train if cfg.mode == "sequential"
+                             else 1)
+        optimizer = expdecay_adamw(
+            cfg.lr, cfg.lr_decay, cfg.lr_decay_epochs * updates_per_epoch,
+            cfg.lr_floor, weight_decay=cfg.weight_decay,
+            grad_max=cfg.grad_max or None)
     trainer = Trainer(
-        loss_batch=make_loss_batch("scan"),
-        loss_batch_eval=make_loss_batch("while"),
+        loss_i_exp=make_loss_i_exp("scan"),
+        loss_i_exp_eval=make_loss_i_exp("while"),
         optimizer=optimizer,
         n_exp_train=cfg.n_exp_train,
         n_exp=cfg.n_exp,
         n_save=cfg.datasize,
+        mode=cfg.mode,
     )
     return CaseSetup(name="case1", trainer=trainer, init_params=init_params,
-                     weights_fn=weights_fn, dataset=dataset)
+                     predict=predict, weights_fn=weights_fn, dataset=dataset,
+                     species=["A", "B", "C", "D", "E"],
+                     loss_on_data=loss_on_data)
 
 
 def main(argv=None):
@@ -135,11 +154,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=500)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mode", default="batch", choices=("batch", "sequential"))
+    ap.add_argument("--restart", action="store_true",
+                    help="resume from <out>/case1/checkpoint.pt")
     ap.add_argument("--p-cutoff", type=float, default=0.0)
     ap.add_argument("--out", default="runs_torch")
     args = ap.parse_args(argv)
-    cfg = Case1Config(device=args.device, p_cutoff=args.p_cutoff)
-    return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out)
+    cfg = Case1Config(device=args.device, mode=args.mode,
+                      p_cutoff=args.p_cutoff)
+    return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
+                    restart=args.restart)
 
 
 if __name__ == "__main__":

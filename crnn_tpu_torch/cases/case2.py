@@ -1,16 +1,36 @@
-"""case2: Arrhenius temperature-dependent CRNN (biodiesel, 6 species + T),
-batch-major training epoch (port of crnn_tpu/cases/case2.py).
+"""case2: Arrhenius temperature-dependent CRNN (biodiesel, 6 species + T)
+(port of crnn_tpu/cases/case2.py).
 
-The path ported is the JAX package's batch-major one: f32, Rosenbrock23,
-``batch_major=True``, reverse-mode gradients, one update per epoch, with
-either W-solve: ``jac_mode='lowrank'`` (the default, rank-nr Woodbury) or
-``jac_mode='dense'`` (full W Gauss-Jordan). On a CUDA device each
-Rosenbrock stage evaluates the RHS through the CUDA kernel
-(``ops/csrc/arrhenius_rhs.cu``), and in dense mode each step's value and
-Jacobian through ``ops/csrc/arrhenius_rhs_jac.cu``. The data are generated
-on the chosen device by the port's own solver.
+30 experiments at random temperatures in [323, 343] K; the CRNN learns logA,
+Ea and the reaction orders through the features [log X; -1/(R*T)]. Two
+solve paths, as in the JAX package:
+
+- ``batch_major=True`` (the default): the batch-major Rosenbrock23
+  (``ode/batch_solve.py``) with either W-solve, ``jac_mode='lowrank'``
+  (rank-nr Woodbury) or ``'dense'`` (full W Gauss-Jordan). On a CUDA device
+  each stage evaluates the RHS through the Arrhenius RHS kernel
+  (``ops/csrc/arrhenius_rhs.cu``), and in dense mode each step's value and
+  Jacobian through ``ops/csrc/arrhenius_rhs_jac.cu``.
+- ``batch_major=False``, and the per-experiment loss of sequential mode:
+  the per-lane driver (``ode/solve.py:odesolve``) with ``solver``
+  (Rosenbrock23 with the closed-form J, or Tsit5). On a CUDA device every f
+  is one launch of the Arrhenius RHS kernel and every J one launch of the
+  value+Jacobian kernel.
+
+Modes: ``mode='batch'`` (one update per epoch) or ``'sequential'`` (one
+update per experiment, the lr-decay steps scaled by the updates per
+epoch). ``grad_mode`` defaults to forward mode under sequential (jacfwd
+through the early-exit driver, the reference's ForwardDiff.gradient) and
+to reverse mode under batch. The loss that forward mode differentiates
+runs the plain versions of the ops, exactly where the JAX package takes its
+reference ops (crnn_tpu/cases/case2.py:170-178): the kernel ops, like JAX's
+custom_vjp ops, have no forward-mode rule. Everything else, the evaluation
+pass among it, runs the kernels. The data are generated on the chosen
+device by the port's own solver.
 
     python -m crnn_tpu_torch.cases.case2 --epochs 3 [--device cpu]
+        [--mode sequential] [--solver tsit5] [--restart]
+        [--epochs-per-dispatch N]
 """
 
 from __future__ import annotations
@@ -25,7 +45,11 @@ from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset
 from crnn_tpu_torch.data.truth import (CASE2_EA, CASE2_LOGA, case2_arrhenius,
                                        case2_truth, case2_truth_jac)
+from crnn_tpu_torch.models.crnn import make_crnn_arrhenius_rhs
+from crnn_tpu_torch.models.jacobian import make_crnn_arrhenius_jac
+from crnn_tpu_torch.ode import Rosenbrock23, get_solver
 from crnn_tpu_torch.ode.batch_solve import batch_odesolve_rb23
+from crnn_tpu_torch.ode.solve import odesolve
 from crnn_tpu_torch.ops.crnn_kernels import (make_arrhenius_factor_op,
                                              make_arrhenius_ops)
 from crnn_tpu_torch.train.loop import Trainer
@@ -59,11 +83,18 @@ class Case2Config:
     p_cutoff: float = 0.0                   # case2_pruning: 0.01
     seed: int = 1234
     max_steps: int = 128
+    # the per-lane solver: 'rosenbrock23' (closed-form J) or 'tsit5'; the
+    # batch-major path is Rosenbrock23 whatever this says, as in JAX
+    solver: str = "rosenbrock23"
+    mode: str = "batch"
     dtype: str = "float32"
     missing_u0: bool = False                # case2_missing u0 tweaks
+    batch_major: bool = True
     # 'lowrank': rank-nr Woodbury W-solve; 'dense': full W Gauss-Jordan on
     # the fused value+Jacobian op
     jac_mode: str = "lowrank"
+    # None: 'fwd' for sequential, 'rev' for batch
+    grad_mode: Optional[str] = None
     device: str = "cuda"
     # True runs the plain PyTorch versions in place of the CUDA kernels:
     # the explicit switch for holding the kernel path against the plain path
@@ -111,41 +142,95 @@ def build(cfg: Case2Config = Case2Config(),
             scale_lb=cfg.lb)
     init_params = init_params_case2(g_p, cfg.ns, cfg.nr, dtype=dtype,
                                     device=device)
+    grad_mode = cfg.grad_mode or (
+        "fwd" if cfg.mode == "sequential" else "rev")
 
     def weights_fn(p):
         if cfg.p_cutoff > 0:
             p = prune_case2_params(p, cfg.ns, cfg.nr, cfg.p_cutoff)
         return p2vec_case2(p, cfg.ns, cfg.nr)
 
-    rhs_op, rhs_jac_op = make_arrhenius_ops(cfg.lb, cfg.ub,
-                                            plain=cfg.rhs_plain)
-    if cfg.jac_mode == "lowrank":
-        factor_op = make_arrhenius_factor_op(cfg.lb, cfg.ub)
-        fjac = lambda t, y, w_: factor_op(y, w_.w_in, w_.w_b, w_.w_out)
-    else:
-        fjac = lambda t, y, w_: rhs_jac_op(y, w_.w_in, w_.w_b, w_.w_out)
     loss_fn = make_trajectory_loss(yscale=dataset.yscale, i_obs=cfg.i_obs)
 
-    def predict_batch(p, u0_b, unroll):
-        w = weights_fn(p)
-        sol = batch_odesolve_rb23(
-            lambda t, y, w_: rhs_op(y, w_.w_in, w_.w_b, w_.w_out), fjac,
-            u0_b, 0.0, t1, dataset.ts, args=w, rtol=cfg.rtol, atol=cfg.atol,
-            max_steps=cfg.max_steps, unroll=unroll, jac_mode=cfg.jac_mode)
-        return clip(sol.ys[:, :, :cfg.ns], -cfg.ub, cfg.ub)
+    # -- the per-lane path (crnn_tpu/cases/case2.py:126-162)
+    def make_predict_lanes(plain):
+        rhs = make_crnn_arrhenius_rhs(cfg.lb, cfg.ub, plain=plain)
+        if cfg.solver == "rosenbrock23":
+            solver = Rosenbrock23(jac=make_crnn_arrhenius_jac(
+                cfg.lb, cfg.ub, plain=plain))
+        else:
+            solver = get_solver(cfg.solver)
 
-    def make_loss_batch(unroll):
-        def loss_batch(p, idxs, masks):
-            preds = predict_batch(p, dataset.u0[idxs], unroll)
-            return loss_fn(preds, dataset.ys[idxs], masks)
-        return loss_batch
+        def predict_from_u0(p, u0_b, unroll):
+            sol = odesolve(rhs, solver, u0_b, 0.0, t1, dataset.ts,
+                           args=weights_fn(p), rtol=cfg.rtol, atol=cfg.atol,
+                           max_steps=cfg.max_steps, unroll=unroll)
+            return clip(sol.ys[:, :, :cfg.ns], -cfg.ub, cfg.ub)
+        return predict_from_u0
 
+    # -- the batch-major path (crnn_tpu/cases/case2.py:164-205)
+    def make_predict_batch(plain):
+        rhs_op, rhs_jac_op = make_arrhenius_ops(cfg.lb, cfg.ub, plain=plain)
+        if cfg.jac_mode == "lowrank":
+            factor_op = make_arrhenius_factor_op(cfg.lb, cfg.ub)
+            fjac = lambda t, y, w_: factor_op(y, w_.w_in, w_.w_b, w_.w_out)
+        else:
+            fjac = lambda t, y, w_: rhs_jac_op(y, w_.w_in, w_.w_b, w_.w_out)
+
+        def predict_batch(p, u0_b, unroll):
+            sol = batch_odesolve_rb23(
+                lambda t, y, w_: rhs_op(y, w_.w_in, w_.w_b, w_.w_out), fjac,
+                u0_b, 0.0, t1, dataset.ts, args=weights_fn(p),
+                rtol=cfg.rtol, atol=cfg.atol, max_steps=cfg.max_steps,
+                unroll=unroll, jac_mode=cfg.jac_mode)
+            return clip(sol.ys[:, :, :cfg.ns], -cfg.ub, cfg.ub)
+        return predict_batch
+
+    def make_loss(predict, unroll):
+        def loss(p, idxs, masks):
+            return loss_fn(predict(p, dataset.u0[idxs], unroll),
+                           dataset.ys[idxs], masks)
+        return loss
+
+    predict_from_u0 = make_predict_lanes(cfg.rhs_plain)
+
+    def loss_on_data(p, u0_b, ys_b, masks, unroll="scan"):
+        return loss_fn(predict_from_u0(p, u0_b, unroll), ys_b, masks)
+
+    def predict(p, i_exp):
+        return predict_from_u0(p, dataset.u0[i_exp:i_exp + 1], "while")[0]
+
+    loss_batch = loss_batch_eval = None
+    if cfg.batch_major:
+        predict_batch = make_predict_batch(cfg.rhs_plain)
+        loss_batch = make_loss(predict_batch, "scan")
+        loss_batch_eval = make_loss(predict_batch, "while")
+
+    loss_fwd = None
+    if grad_mode == "fwd":
+        # jacfwd differentiates the plain versions: the kernel ops'
+        # autograd.Function has no forward-mode rule, as JAX's custom_vjp
+        # ops have none, and JAX takes its reference ops here
+        # (crnn_tpu/cases/case2.py:170-178). Only this loss takes them: the
+        # evaluation pass runs the kernels.
+        make_predict = (make_predict_batch
+                        if cfg.batch_major and cfg.mode == "batch"
+                        else make_predict_lanes)
+        loss_fwd = make_loss(make_predict(True), "while")
+
+    updates_per_epoch = cfg.n_exp_train if cfg.mode == "sequential" else 1
     trainer = Trainer(
-        loss_batch=make_loss_batch("scan"),
-        loss_batch_eval=make_loss_batch("while"),
+        loss_i_exp=make_loss(predict_from_u0, "scan"),
+        loss_i_exp_eval=make_loss(predict_from_u0, "while"),
+        loss_batch=loss_batch,
+        loss_batch_eval=loss_batch_eval,
+        loss_fwd=loss_fwd,
+        mode=cfg.mode,
+        grad_mode=grad_mode,
         optimizer=expdecay_adamw(
-            cfg.lr0, cfg.lr_decay, cfg.lr_decay_epochs, cfg.lr_floor,
-            weight_decay=cfg.weight_decay, grad_max=cfg.grad_max or None),
+            cfg.lr0, cfg.lr_decay, cfg.lr_decay_epochs * updates_per_epoch,
+            cfg.lr_floor, weight_decay=cfg.weight_decay,
+            grad_max=cfg.grad_max or None),
         n_exp_train=cfg.n_exp_train,
         n_exp=cfg.n_exp,
         n_save=cfg.datasize,
@@ -154,8 +239,11 @@ def build(cfg: Case2Config = Case2Config(),
         name="case2",
         trainer=trainer,
         init_params=init_params,
+        predict=predict,
         weights_fn=weights_fn,
         dataset=dataset,
+        species=["TG", "ROH", "DG", "MG", "GL", "R'CO2R"],
+        loss_on_data=loss_on_data,
     )
 
 
@@ -165,17 +253,26 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=1000)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mode", default="batch", choices=("batch", "sequential"))
+    ap.add_argument("--solver", default="rosenbrock23")
     ap.add_argument("--missing", action="store_true",
                     help="case2_missing variant")
     ap.add_argument("--p-cutoff", type=float, default=0.0,
                     help="case2_pruning variant")
+    ap.add_argument("--restart", action="store_true",
+                    help="resume from <out>/case2/checkpoint.pt")
     ap.add_argument("--out", default="runs_torch")
+    ap.add_argument("--epochs-per-dispatch", type=int, default=1,
+                    help="run the epochs in chunks of N")
     args = ap.parse_args(argv)
-    cfg = Case2Config(device=args.device, p_cutoff=args.p_cutoff)
+    cfg = Case2Config(device=args.device, mode=args.mode, solver=args.solver,
+                      p_cutoff=args.p_cutoff)
     if args.missing:
         cfg.i_obs = (0, 1, 3, 4, 5)
         cfg.missing_u0 = True
-    return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out)
+    return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
+                    restart=args.restart,
+                    epochs_per_dispatch=args.epochs_per_dispatch)
 
 
 if __name__ == "__main__":

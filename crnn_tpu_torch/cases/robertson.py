@@ -1,18 +1,21 @@
-"""Robertson: strongly stiff CRNN over t in [0, 1e5] in float64, batch-mode
-training epoch (port of crnn_tpu/cases/robertson.py, ``grad_path='rev_scan'``).
+"""Robertson: strongly stiff CRNN over t in [0, 1e5] in float64 (port of
+crnn_tpu/cases/robertson.py, ``grad_path='rev_scan'``).
 
 25 experiments (20 train / 5 validation) with Latin-hypercube initial
 conditions, 40 log-spaced save times, Rosenbrock23 with the closed-form
 CRNN Jacobian on the per-lane ``odesolve``, per-species atol,
 product-tied 10^w_out p2vec, dy/dt rescaling, global-norm clipping at 10
-and stochastic prefix horizons (sample = rand(32:40)). On a CUDA device
+and stochastic prefix horizons (sample = rand(32:40)); ``mode='batch'`` or
+``'sequential'`` (one update per experiment). On a CUDA device
 every RHS call goes through the isothermal kernel
 (``ops/csrc/crnn_rhs.cu``) and every step's Jacobian through the
 value+Jacobian kernel (``ops/csrc/crnn_rhs_jac.cu``). The truth is always
 generated in float64 on the chosen device, with a forward-mode Jacobian.
-The adjoint gradient path, ``w_out_mask`` and the LM finish are not ported.
+The adjoint gradient path, ``w_out_mask`` and the LM finish
+(``--lm-finish``) are not ported.
 
     python -m crnn_tpu_torch.cases.robertson --epochs 2 [--device cpu]
+        [--mode sequential] [--restart]
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ class RobertsonConfig:
     lb: float = 1e-8
     seed: int = 1234
     max_steps: int = 192
+    mode: str = "batch"
     # training dtype; the truth is always generated in float64 and cast
     dtype: str = "float64"
     device: str = "cuda"
@@ -117,29 +121,40 @@ def build(cfg: RobertsonConfig = RobertsonConfig(),
 
     loss_fn = make_trajectory_loss(yscale=dataset.yscale)
 
-    def make_loss_batch(unroll):
-        def loss_batch(p, idxs, masks):
-            sol = odesolve(rhs, solver, dataset.u0[idxs], 0.0, t1, dataset.ts,
-                           args=weights_fn(p), rtol=cfg.rtol, atol=atol,
-                           max_steps=cfg.max_steps, unroll=unroll)
-            return loss_fn(sol.ys, dataset.ys[idxs], masks)
-        return loss_batch
+    def predict_from_u0(p, u0_b, unroll):
+        return odesolve(rhs, solver, u0_b, 0.0, t1, dataset.ts,
+                        args=weights_fn(p), rtol=cfg.rtol, atol=atol,
+                        max_steps=cfg.max_steps, unroll=unroll).ys
+
+    def loss_on_data(p, u0_b, ys_b, masks, unroll="scan"):
+        return loss_fn(predict_from_u0(p, u0_b, unroll), ys_b, masks)
+
+    def make_loss_i_exp(unroll):
+        def loss_i_exp(p, idxs, masks):
+            return loss_on_data(p, dataset.u0[idxs], dataset.ys[idxs], masks,
+                                unroll)
+        return loss_i_exp
+
+    def predict(p, i_exp):
+        return predict_from_u0(p, dataset.u0[i_exp:i_exp + 1], "while")[0]
 
     trainer = Trainer(
-        loss_batch=make_loss_batch("scan"),
-        loss_batch_eval=make_loss_batch("while"),
+        loss_i_exp=make_loss_i_exp("scan"),
+        loss_i_exp_eval=make_loss_i_exp("while"),
         optimizer=adamw_like(cfg.lr, weight_decay=cfg.weight_decay,
                              grad_max=cfg.grad_max),
         n_exp_train=cfg.n_exp_train,
         n_exp=cfg.n_exp,
         n_save=cfg.datasize,
+        mode=cfg.mode,
         horizon_range=(cfg.batchsize, cfg.datasize),
     )
     return CaseSetup(
         name="robertson", trainer=trainer,
         init_params=init_params_robertson(g_p, cfg.ns, cfg.nr,
                                           dtype=train_dtype, device=device),
-        weights_fn=weights_fn, dataset=dataset)
+        predict=predict, weights_fn=weights_fn, dataset=dataset,
+        dydt_scale=dydt_scale, logx_plots=True, loss_on_data=loss_on_data)
 
 
 def main(argv=None):
@@ -148,10 +163,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=500)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mode", default="batch", choices=("batch", "sequential"))
+    ap.add_argument("--restart", action="store_true",
+                    help="resume from <out>/robertson/checkpoint.pt")
     ap.add_argument("--out", default="runs_torch")
     args = ap.parse_args(argv)
-    return run_case(build(RobertsonConfig(device=args.device)),
-                    n_epoch=args.epochs, out_dir=args.out)
+    return run_case(build(RobertsonConfig(device=args.device, mode=args.mode)),
+                    n_epoch=args.epochs, out_dir=args.out,
+                    restart=args.restart)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,14 @@
-"""Isothermal CRNN right-hand sides, lane-batched (port of
-crnn_tpu/models/crnn.py:make_crnn_rhs and make_crnn_scaled_rhs).
+"""CRNN right-hand sides, lane-batched (port of crnn_tpu/models/crnn.py:
+make_crnn_rhs, make_crnn_scaled_rhs and make_crnn_arrhenius_rhs).
 
     du = w_out @ exp(min(w_in^T @ log(clip(y, lb, ub)) + w_b, exp_cap))
 
 The JAX package writes each RHS for one lane and batches it with ``vmap``;
 here ``rhs(t, y (B, ns), w) -> (B, ns)`` takes the lane axis first, which is
-the shape of the isothermal kernel (``ops/csrc/crnn_rhs.cu``): every call
-on a CUDA tensor is one kernel launch, with the backward by autograd of the
-plain version. The exponent cap of 32 keeps the rates of wild trial steps
+the shape of the isothermal kernel (``ops/csrc/crnn_rhs.cu``) and of the
+Arrhenius kernel (``ops/csrc/arrhenius_rhs.cu``, y (B, ns+1) with T last):
+every call on a CUDA tensor is one kernel launch, with the backward by
+autograd of the plain version. The exponent cap of 32 keeps the rates of wild trial steps
 finite, so reverse-mode gradients are not poisoned by inf * 0.
 """
 
@@ -17,7 +18,8 @@ from typing import Callable
 
 import torch
 
-from crnn_tpu_torch.ops.crnn_kernels import make_crnn_rhs_op
+from crnn_tpu_torch.ops.crnn_kernels import (make_arrhenius_ops,
+                                             make_crnn_rhs_op)
 
 
 def make_crnn_rhs(lb: float, ub: float, exp_cap: float = 32.0,
@@ -40,5 +42,19 @@ def make_crnn_scaled_rhs(lb: float, ub: float, dydt_scale: torch.Tensor,
 
     def rhs(t, y, w):
         return op(y, w.w_in, w.w_b, w.w_out) * dydt_scale
+
+    return rhs
+
+
+def make_crnn_arrhenius_rhs(lb: float, ub: float, exp_cap: float = 32.0,
+                            plain: bool = False) -> Callable:
+    """Arrhenius CRNN (case2): temperature rides as the constant last state,
+    the features are [log X; -1/(R*T)] (case2/case2.jl:113-118) and dT/dt =
+    0. ``rhs(t, y (B, ns+1), w) -> (B, ns+1)`` runs the Arrhenius RHS kernel
+    on a CUDA tensor; ``plain=True`` runs the plain version on any device."""
+    op = make_arrhenius_ops(lb, ub, exp_cap, plain)[0]
+
+    def rhs(t, y, w):
+        return op(y, w.w_in, w.w_b, w.w_out)
 
     return rhs

@@ -482,3 +482,87 @@ def test_per_lane_case_epoch_on_kernel_path(cuda_device, name):
                                              masks)
         torch.testing.assert_close(g, gp, rtol=1e-9,
                                    atol=1e-9 * float(gp.abs().max()))
+
+
+def test_case2_per_lane_epoch_on_kernel_path(cuda_device):
+    """case2 with ``batch_major=False`` in f64 at a reduced size: the
+    reverse-mode epoch launches kernel 1 (every f) and kernel 2 (every J),
+    and agrees with the plain path on the same params and perm at rtol
+    1e-9 (gradient, eval losses, params)."""
+    from crnn_tpu_torch.cases import case2
+
+    kw = dict(n_exp_train=6, n_exp_test=2, datasize=20, batch_major=False,
+              dtype="float64")
+    setup = case2.build(case2.Case2Config(**kw))
+    plain = case2.build(case2.Case2Config(rhs_plain=True, **kw),
+                        dataset=setup.dataset)
+    perm = torch.randperm(6, generator=torch.Generator().manual_seed(0))
+    tk.arrhenius_rhs_batched.launches = 0
+    tk.arrhenius_rhs_jac_batched.launches = 0
+    state, m = setup.trainer.epoch(setup.trainer.init(setup.init_params), perm)
+    torch.cuda.synchronize()
+    launches = (tk.arrhenius_rhs_batched.launches,
+                tk.arrhenius_rhs_jac_batched.launches)
+    assert min(launches) > 0
+    sp, mp = plain.trainer.epoch(plain.trainer.init(plain.init_params), perm)
+    assert (tk.arrhenius_rhs_batched.launches,
+            tk.arrhenius_rhs_jac_batched.launches) == launches
+    torch.testing.assert_close(m.loss_exp, mp.loss_exp, rtol=1e-9, atol=0)
+    torch.testing.assert_close(m.grad_norm, mp.grad_norm, rtol=1e-9, atol=0)
+    torch.testing.assert_close(state.params, sp.params, rtol=1e-9,
+                               atol=1e-9 * float(sp.params.abs().max()))
+
+
+def test_case2_restart_on_card_equals_an_uninterrupted_run(cuda_device,
+                                                           tmp_path):
+    """case2 (batch-major, f32, reduced size) for 2 epochs and then 2 more
+    with restart in one 2-epoch chunk gives the losses of 4 epochs run at
+    once bit for bit, and the same final checkpoint (the generator's state
+    among it), with metrics.jsonl counting epochs 1-4."""
+    import json
+
+    from crnn_tpu_torch.cases import base, case2
+
+    setup = case2.build(case2.Case2Config(n_exp_train=6, n_exp_test=2,
+                                          datasize=20))
+    _, h4 = base.run_case(setup, 4, out_dir=str(tmp_path / "a"), log_every=0)
+    base.run_case(setup, 2, out_dir=str(tmp_path / "b"), log_every=0)
+    state, h2 = base.run_case(setup, 2, out_dir=str(tmp_path / "b"),
+                              log_every=0, restart=True,
+                              epochs_per_dispatch=2)
+    rows = [json.loads(line) for line in
+            (tmp_path / "b" / "case2" / "metrics.jsonl").read_text()
+            .splitlines()]
+    assert [r["epoch"] for r in rows] == [1, 2, 3, 4] and state.epoch == 4
+    for name in ("loss_train", "loss_val", "grad_norm"):
+        assert h2[name] == h4[name][2:]
+    ckpts = [torch.load(tmp_path / k / "case2" / "checkpoint.pt",
+                        weights_only=True) for k in ("a", "b")]
+    for k, v in ckpts[0].items():
+        assert (torch.equal(v, ckpts[1][k]) if isinstance(v, torch.Tensor)
+                else v == ckpts[1][k]), k
+    assert (tmp_path / "b" / "case2" / "p_opt.npy").exists()
+
+
+@pytest.mark.parametrize("batch_major", [True, False])
+def test_case2_sequential_forward_mode_evaluates_on_the_kernels(
+        cuda_device, batch_major):
+    """A sequential case2 epoch (forward mode, f32, reduced size): jacfwd
+    differentiates the plain ops, the evaluation pass runs kernel 1 (and
+    kernel 2 with the per-lane evaluation); the epoch is finite."""
+    from crnn_tpu_torch.cases import case2
+
+    setup = case2.build(case2.Case2Config(
+        n_exp_train=4, n_exp_test=2, datasize=20, mode="sequential",
+        batch_major=batch_major))
+    assert setup.trainer.grad_mode == "fwd"
+    tk.arrhenius_rhs_batched.launches = 0
+    tk.arrhenius_rhs_jac_batched.launches = 0
+    state, m = setup.trainer.epoch(setup.trainer.init(setup.init_params))
+    torch.cuda.synchronize()
+    assert tk.arrhenius_rhs_batched.launches > 0
+    if not batch_major:
+        assert tk.arrhenius_rhs_jac_batched.launches > 0
+    assert state.opt_state.count == 4
+    assert bool(torch.isfinite(m.loss_exp).all())
+    assert bool(torch.isfinite(m.grad_norm))
