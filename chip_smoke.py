@@ -69,7 +69,10 @@ Phases, each printed with the seconds it took:
    and f64, ub = 10 and ub = inf, on the edge inputs of phase 2 and at the
    exp cap: NaN and inf positions exact, finite values within 2e-6 (f32)
    or 1e-12 (f64) of each output component's largest value; then device
-   and eager times against the plain versions' and the launch floor;
+   and eager times against the plain versions' and the launch floor; then
+   kernel 4 at the 100 lanes of case3 (ns=9, nr=8) and of the GRN (ns=9,
+   nr=15), f32 and f64, ub = 100 and inf, under the same gate, with its
+   device ms, the launch floor and its bound at B=100 in f32;
 8. case1: 3 guarded epochs of Case1Config() (f32, Tsit5) through run_case,
    counters set to 0 just before and read just after (kernel 4 launches;
    finite, non-increasing training loss); the kernel path against the
@@ -94,7 +97,22 @@ Phases, each printed with the seconds it took:
    with ``--restart --epochs-per-dispatch 2``: metrics.jsonl runs epochs
    1-4, the checkpoint, best and p_opt.npy files exist, and every epoch's
    losses and grad norm and the final checkpoint (the generator's state
-   among it) equal those of a 4-epoch uninterrupted run bit for bit.
+   among it) equal those of a 4-epoch uninterrupted run bit for bit;
+11. isothermal family: (a) case3 (``Case3Config()``: 100 experiments,
+   100 save points, ns=9, nr=8, f32, Tsit5, max_steps 192) and (b) the GRN
+   (``grn_config()``: nr=15, 40 save points, horizons 2-40): 2 guarded
+   epochs each through run_case with kernel 4 counted (> 0); the kernel
+   path against the plain path on the f32 losses (train and eval) at the
+   initial and the trained params at rtol 1e-4, or at 3x the plain path's
+   own move under one ulp of the params where that is larger (case3's
+   log-space loss of species that decay to lb), on the f32 ys within
+   5e-4 of each species' largest value, and over a whole f64 epoch (loss,
+   grad, eval losses, params) at rtol 1e-9; (c) case1 rev
+   (``Case1RevConfig()``): 2 forward-mode epochs, finite, with every
+   kernel's count 0 (its reversible RHS is plain torch, as in JAX); (d)
+   the per-lane Rosenbrock23 on a t-dependent RHS (``ramp_rhs``, df/dt by
+   forward mode in t) in f64 on the card against the same solve on the
+   CPU: n_steps exact, ys within 1e-9 of each component's largest value.
 
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
@@ -113,6 +131,7 @@ or run from a directory without the crnn_tpu_torch package, it fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -501,12 +520,13 @@ def forward_losses(setup, params, perm, cfg):
     return train, evals
 
 
-def compare_epoch(name, a, b, what="kernel", against="plain"):
+def compare_epoch(name, a, b, what="kernel", against="plain",
+                  rtol=_EPOCH_RTOL):
     """The ``what`` path's ``a`` against the ``against`` path's ``b``
-    (default: kernel path against plain path): rtol 1e-4 of
-    each entry, plus 1e-4 of the largest entry for entries near 0 (a
+    (default: kernel path against plain path): ``rtol`` (1e-4) of
+    each entry, plus ``rtol`` of the largest entry for entries near 0 (a
     gradient component can be ~0); fails the run if they disagree."""
-    tol = _EPOCH_RTOL * (b.abs() + b.abs().max())
+    tol = rtol * (b.abs() + b.abs().max())
     rel = float(((a - b).abs() / b.abs().max()).max())
     ok = bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= tol).all())
     print(f"  {what} vs {against} {name}: max rel err {rel:.3e} ok={ok}")
@@ -1101,8 +1121,11 @@ def run_fused_eval(setup, params) -> dict:
 def crnn_inputs(batch, dtype, gen, shape, edges, device="cuda"):
     """Isothermal RHS inputs at ``shape``: 'case1' (ns=5, nr=4, weights from
     the case1 init, lb 1e-5), 'robertson' (ns=3, nr=6, weights from the
-    robertson init, lb 1e-8) or (ns, nr) (orders 0.5|N(0, 1)|/sqrt(ns),
-    bias N(0, 1), w_out |N(0, 1)|, lb 1e-5). ``edges``: False, True (the
+    robertson init, lb 1e-8), 'case3' (ns=9, nr=8) and 'grn' (ns=9, nr=15,
+    w_out's DNA rows frozen) with weights from the case3 init, y
+    log-uniform in [1e-3, 1] as case3's u0 and lb 1e-5, or (ns, nr) (orders
+    0.5|N(0, 1)|/sqrt(ns), bias N(0, 1), w_out |N(0, 1)|, lb 1e-5).
+    ``edges``: False, True (the
     first rows carry phase 2's edge values, as many as the batch has rows,
     an edge's species index wrapping at ns) or 'exp-cap' (edge rows and a
     bias of +60 that lifts every rate above exp(32)).
@@ -1126,8 +1149,10 @@ def crnn_inputs(batch, dtype, gen, shape, edges, device="cuda"):
     from crnn_tpu_torch import clip
     from crnn_tpu_torch.transforms.p2vec import (CRNNWeights,
                                                  init_params_case1,
+                                                 init_params_case3,
                                                  init_params_robertson,
-                                                 p2vec_case1, p2vec_robertson)
+                                                 p2vec_case1, p2vec_case3,
+                                                 p2vec_robertson)
 
     if shape == "case1":
         ns, nr, lb = 5, 4, 1e-5
@@ -1140,6 +1165,13 @@ def crnn_inputs(batch, dtype, gen, shape, edges, device="cuda"):
                                                   device="cpu"), ns, nr)
         y = torch.rand((batch, ns), generator=gen, dtype=dtype) * 2.0 + 0.5
         y[:, 1] = y[:, 1] * 1e-4
+    elif shape in ("case3", "grn"):
+        ns, nr, lb = 9, (8 if shape == "case3" else 15), 1e-5
+        w = p2vec_case3(init_params_case3(gen, ns, nr, dtype=dtype,
+                                          device="cpu"), ns, nr,
+                        frozen_rows=(0, 3, 6) if shape == "grn" else None)
+        y = 10.0 ** (torch.rand((batch, ns), generator=gen, dtype=dtype)
+                     * -3.0)
     else:
         (ns, nr), lb = shape, 1e-5
         w = CRNNWeights(
@@ -1148,7 +1180,7 @@ def crnn_inputs(batch, dtype, gen, shape, edges, device="cuda"):
             w_b=torch.randn((nr,), generator=gen, dtype=dtype),
             w_out=torch.randn((ns, nr), generator=gen, dtype=dtype).abs())
         y = torch.rand((batch, ns), generator=gen, dtype=dtype) * 1.2
-    w_in, w_b, w_out = w
+    w_in, w_b, w_out = w.w_in, w.w_b, w.w_out
     if edges:
         lb_t = torch.tensor(lb, dtype=dtype)
         for row, (col, val) in enumerate([
@@ -1289,12 +1321,66 @@ def check_crnn_kernels(gen):
     return rhs_row, jac_row
 
 
-def train_case(module, cfg, n_epoch, counters):
+def check_crnn_rhs_family_shapes(gen) -> dict:
+    """Phase 7, continued: kernel 4 at the 100 lanes of case3 (ns=9, nr=8)
+    and of the GRN (ns=9, nr=15), f32 and f64, plain, edge and exp-cap
+    inputs, ub = 100 (as the cases run it) and inf, held as ``crnn_inputs``
+    conditions them; then its device and eager times at B=100 in f32
+    against the plain version's, the launch floor and its bound. The draws
+    come from ``gen``, a generator of their own. Returns {shape: times}."""
+    from crnn_tpu_torch.ops.crnn_kernels import (crnn_rhs_batched,
+                                                 crnn_rhs_batched_reference)
+
+    tol = {torch.float32: 2e-6, torch.float64: 1e-12}
+    out = {}
+    for shape in ("case3", "grn"):
+        for dtype in (torch.float32, torch.float64):
+            worst = 0.0
+            for edges in (False, True, "exp-cap"):
+                args, lb = crnn_inputs(100, dtype, gen, shape, edges)
+                for ub in (100.0, math.inf):
+                    got = crnn_rhs_batched(*args, lb, ub)
+                    ref = crnn_rhs_batched_reference(*args, lb, ub)
+                    torch.cuda.synchronize()
+                    ok, err, rel = compare_components(got, ref, tol[dtype])
+                    if not ok:
+                        fail(f"crnn_rhs disagrees with its plain version: "
+                             f"{shape} B=100 {dtype} edges={edges} ub={ub}: "
+                             f"{err:.3e}")
+                    worst = max(worst, rel)
+                    if dtype == torch.float32 and not edges and ub == 100.0:
+                        out[shape] = {"max_abs_err": err}
+            print(f"  crnn_rhs {shape} B=100 {str(dtype)[6:]}: plain, edges, "
+                  f"exp cap; ub 100 and inf: ok; largest error over its "
+                  f"component's largest value {worst:.3e} (gate "
+                  f"{tol[dtype]:.0e})")
+        (y, w_in, w_b, w_out), lb = crnn_inputs(100, torch.float32, gen,
+                                                shape, False)
+        ns, nr = w_out.shape
+        bound, bound_by = crnn_bound_ms(100, ns, nr, torch.float32, False)
+        out[shape].update(
+            ms=device_ms(lambda: crnn_rhs_batched(y, w_in, w_b, w_out, lb,
+                                                  100.0)),
+            plain_ms=device_ms(lambda: crnn_rhs_batched_reference(
+                y, w_in, w_b, w_out, lb, 100.0)),
+            ms_eager=eager_ms(lambda: crnn_rhs_batched(y, w_in, w_b, w_out,
+                                                       lb, 100.0)),
+            floor_ms=floor_ms(y), bound_ms=bound, bound_by=bound_by,
+            timed_at=f"{shape} ({ns}, {nr}) B=100 f32")
+        print(f"  crnn_rhs {shape} ({ns}, {nr}) B=100 f32 ms/call: "
+              + ", ".join(f"{k}={out[shape][k]:.5f}" for k in (
+                  "ms", "plain_ms", "ms_eager", "floor_ms"))
+              + f", bound={bound:.3e} ({bound_by})")
+    return out
+
+
+def train_case(module, cfg, n_epoch, counters, launch=True):
     """``n_epoch`` guarded epochs of ``cfg`` through run_case on the card,
     with every counter of ``counters`` set to 0 just before and read just
     after; fails on non-finite metrics, a discarded epoch, a missing
-    metrics line or a kernel launched 0 times. Returns (setup, state,
-    history, launches)."""
+    metrics line or a kernel launched 0 times (with ``launch=False``: a
+    kernel launched at all, for a path that has none). Returns (setup,
+    state, history, launches)."""
     from crnn_tpu_torch.cases.base import run_case
 
     t0 = time.perf_counter()
@@ -1321,8 +1407,11 @@ def train_case(module, cfg, n_epoch, counters):
         fail(f"{setup.name}: {hist['n_skipped']} epochs discarded")
     if not hist["loss_train"][-1] <= hist["loss_train"][0]:
         fail(f"{setup.name}: the training loss rose: {hist['loss_train']}")
-    if min(launches) == 0:
+    if launch and min(launches) == 0:
         fail(f"{setup.name}: a kernel of its path launched 0 times: "
+             f"{launches}")
+    if not launch and max(launches) > 0:
+        fail(f"{setup.name}: a kernel launched on a path without kernels: "
              f"{launches}")
     return setup, state, hist, launches
 
@@ -1554,6 +1643,155 @@ def run_runner(gen) -> dict:
     return out
 
 
+def ramp_rhs(t, y, k):
+    """A -> B -> C with Arrhenius rates on a temperature ramp T = 300 + 40 t
+    (a DSC-like t-dependent RHS, not declared autonomous), lanes y (B, 3),
+    k (B, 4) = (log A1, E1, log A2, E2); the CPU test's
+    (tests/test_torch_rosenbrock_ft.py)."""
+    temp = 300.0 + 40.0 * t
+    r1 = torch.exp(k[:, 0] - k[:, 1] / temp) * y[:, 0]
+    r2 = torch.exp(k[:, 2] - k[:, 3] / temp) * y[:, 1]
+    return torch.stack([-r1, r1 - r2, r2], dim=1)
+
+
+def check_t_dependent_rb23():
+    """Phase 11(d): the per-lane Rosenbrock23 on ``ramp_rhs`` in f64, its
+    df/dt by forward mode in t, on the card against the same solve on the
+    CPU: n_steps exact, ys within 1e-9 of each component's largest value."""
+    from crnn_tpu_torch.ode.rosenbrock import Rosenbrock23
+    from crnn_tpu_torch.ode.solve import odesolve
+
+    gen = torch.Generator().manual_seed(3)
+    u0 = torch.zeros((4, 3), dtype=torch.float64)
+    u0[:, 0] = torch.rand(4, generator=gen, dtype=torch.float64) + 0.5
+    jitter = torch.rand((4, 2), generator=gen, dtype=torch.float64) - 0.5
+    k = torch.stack([10.0 + jitter[:, 0], torch.full((4,), 3000.0,
+                     dtype=torch.float64), 12.0 + jitter[:, 1],
+                     torch.full((4,), 3000.0, dtype=torch.float64)], dim=1)
+    saveat = torch.linspace(0.0, 5.0, 12, dtype=torch.float64)
+    sols = []
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sols.append(odesolve(ramp_rhs, Rosenbrock23(), u0.to(dev), 0.0, 5.0,
+                             saveat.to(dev), args=k.to(dev), rtol=1e-3,
+                             atol=1e-6, max_steps=4096, unroll="while"))
+        print(f"  t-dependent Rosenbrock23 on {dev}: "
+              f"{time.perf_counter() - t0:.3f} s")
+    (card, cpu) = sols
+    rel = rel_err_components(card.ys.cpu(), cpu.ys)
+    same_steps = torch.equal(card.n_steps.cpu(), cpu.n_steps)
+    print(f"  t-dependent Rosenbrock23 card vs CPU: n_steps "
+          f"{cpu.n_steps.tolist()} equal {same_steps}; ys max err {rel:.3e} "
+          f"of each component's largest value (gate 1e-9)")
+    if not (same_steps and bool(cpu.success.all()) and rel <= 1e-9):
+        fail("t-dependent Rosenbrock23: the card's solve differs from the "
+             "CPU's")
+
+
+def f32_losses_vs_plain(label, setup, plain, params, perm, cfg):
+    """The f32 training loss (mean over ``perm``, scan driver) and eval
+    losses (per experiment, early-exit driver) of the kernel path against
+    the plain path at ``params``, at rtol 1e-4 or, where the plain path
+    itself is worse conditioned, at 3x its conditioning witness: the
+    largest move of the same losses on the plain path when every param
+    moves by one ulp (all up, all down, and two draws of a random sign
+    each). case3's log-space loss needs that: where a predicted species
+    decays to lb (1e-5), f32's absolute rounding of the O(1) states
+    becomes a large difference of logs, so one ulp of the params moves
+    one experiment's loss by ~3e-3 of the largest (printed below). The
+    kernel is held per experiment in f64 at rtol 1e-9
+    (``compare_f64_epochs``)."""
+    kernel = forward_losses(setup, params, perm, cfg)
+    ref = forward_losses(plain, params, perm, cfg)
+    signs = torch.randint(0, 2, (2, *params.shape),
+                          generator=torch.Generator().manual_seed(0))
+    dirs = [torch.full_like(params, math.inf), torch.full_like(
+        params, -math.inf), *((2.0 * signs - 1.0).to(params) * math.inf)]
+    moved = [forward_losses(plain, torch.nextafter(params, params + d), perm,
+                            cfg) for d in dirs]
+    for i, what in enumerate(("train loss", "eval losses")):
+        witness = max(float(((m[i] - ref[i]).abs() / ref[i].abs().max())
+                            .max()) for m in moved)
+        rtol = max(_EPOCH_RTOL, 3.0 * witness)
+        print(f"  {label} f32 {what}: one ulp of the params moves the plain "
+              f"path by {witness:.3e} of its largest; gate rtol {rtol:.3e}")
+        compare_epoch(f"{label} f32 {what}", kernel[i], ref[i], rtol=rtol)
+
+
+def run_isothermal_family(gen) -> dict:
+    """Phase 11: (a) case3 and (b) the GRN as shipped on the card: 2 f32
+    epochs through run_case with kernel 4 counted; the kernel path against
+    the plain path on the f32 losses at the initial and the trained params
+    (``f32_losses_vs_plain``), on the f32 ys (5e-4 of each species'
+    largest value), and over a whole f64 epoch at rtol 1e-9; (c) case1 rev: 2
+    forward-mode epochs, no kernel launched; (d) the t-dependent
+    Rosenbrock23 on the card against the CPU. Returns the launch counts
+    and epoch seconds for kernel 4's row."""
+    import dataclasses
+
+    from crnn_tpu_torch.cases import case1_rev, case3
+    from crnn_tpu_torch.models.crnn import make_crnn_scaled_rhs
+    from crnn_tpu_torch.ode.solve import odesolve
+    from crnn_tpu_torch.ode.tsit5 import Tsit5
+    from crnn_tpu_torch.ops import crnn_kernels as ck
+
+    counters = (ck.crnn_rhs_batched, ck.crnn_rhs_jac_batched,
+                ck.arrhenius_rhs_batched, ck.arrhenius_rhs_jac_batched)
+    row = {}
+    for name, cfg in (("case3", case3.Case3Config()),
+                      ("grn", case3.grn_config())):
+        setup, state, hist, (launches,) = train_case(
+            case3, cfg, 2, (ck.crnn_rhs_batched,))
+        ds = setup.dataset
+        if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
+            fail(f"{name}: truth solve failed or produced non-finite data")
+        plain = case3.build(dataclasses.replace(cfg, rhs_plain=True),
+                            dataset=ds)
+        trainer = setup.trainer
+        n_upd = trainer.n_exp_update or trainer.n_exp_train
+        perm = torch.randperm(n_upd, generator=gen).cuda()
+        for label, params in (("initial", setup.init_params),
+                              ("trained", state.params)):
+            f32_losses_vs_plain(f"{name} ({label} params)", setup, plain,
+                                params, perm, cfg)
+        ys = []
+        for plain_rhs in (False, True):
+            with torch.no_grad():
+                ys.append(odesolve(
+                    make_crnn_scaled_rhs(cfg.lb, cfg.ub, setup.dydt_scale,
+                                         plain=plain_rhs), Tsit5(),
+                    ds.u0, 0.0, cfg.datasize * cfg.tstep, ds.ts,
+                    args=setup.weights_fn(setup.init_params),
+                    rtol=cfg.rtol, atol=cfg.atol, max_steps=cfg.max_steps,
+                    unroll="while").ys)
+        rel = rel_err_components(*ys)
+        print(f"  {name} f32 ys kernel vs plain: max err {rel:.3e} of each "
+              f"species' largest value")
+        if not rel < 5e-4:
+            fail(f"{name}: kernel path ys disagree with the plain path")
+        ds64 = ds._replace(**{k: getattr(ds, k).double() for k in (
+            "u0", "ys", "ys_clean", "ts", "yscale")})
+        masks = trainer.sample_masks(gen, n_upd, torch.float64)
+        tk, tp = compare_f64_epochs(
+            case3, functools.partial(dataclasses.replace, cfg), ds64,
+            setup.init_params.double(), perm, masks, name)
+        row.update({f"{name}_launches": launches,
+                    f"{name}_launches_per_epoch": launches / 2,
+                    f"{name}_epoch_s": hist["epoch_s"],
+                    f"{name}_f64_epoch_kernel_s": tk,
+                    f"{name}_f64_epoch_plain_s": tp})
+
+    # (c) case1 rev: forward mode through the while driver, plain torch
+    _, _, hist, launches = train_case(case1_rev, case1_rev.Case1RevConfig(),
+                                      2, counters, launch=False)
+    print(f"  case1_rev: no kernel on its path (launches {launches}); "
+          f"epoch_s {hist['epoch_s']}")
+
+    # (d) the t-dependent Rosenbrock23
+    check_t_dependent_rb23()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -1679,6 +1917,11 @@ def main() -> int:
 
     with phase("7 kernels 4-5"):
         iso_row, iso_jac_row = check_crnn_kernels(gen)
+        # case3's and the GRN's shapes draw from a generator of their own,
+        # so the later phases see the draws they saw before them
+        for shape, times in check_crnn_rhs_family_shapes(
+                torch.Generator().manual_seed(11)).items():
+            iso_row[f"{shape}_shape"] = times
 
     with phase("8 case1"):
         iso_row.update(run_case1(gen))
@@ -1693,6 +1936,9 @@ def main() -> int:
         kernel_row.update(runner["arrhenius_rhs"])
         jac_row.update(runner["arrhenius_rhs_jac"])
         iso_row.update(runner["crnn_rhs"])
+
+    with phase("11 isothermal family"):
+        iso_row.update(run_isothermal_family(gen))
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("library_ms: null for every kernel: no single PyTorch call computes "

@@ -48,3 +48,9 @@ def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     if not isinstance(hi, torch.Tensor):
         hi = x.new_full((), hi)
     return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs`` semantics: the gradient at 0 is 1, as JAX's
+    ``select(x >= 0, g, -g)`` gives it; ``torch.abs`` gives 0 there."""
+    return torch.where(x >= 0, x, -x)

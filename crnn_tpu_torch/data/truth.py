@@ -1,20 +1,30 @@
 """Ground-truth mass-action systems, batched (port of crnn_tpu/data/truth.py:
-case1, case2 and robertson).
+case1, case2, case3, robertson, case1 rev and the GRN).
 
 The JAX package writes each truth per lane and lets ``vmap`` batch it; here
 each is written for a batch ``y (B, ns)`` with per-lane rate constants
-``k (B, nk)``. case2 has its closed-form Jacobian too, for the dense W-solve
-of ``ode/batch_solve.py``.
+``k (B, nk)``, and is declared autonomous (``ode/base.py:autonomous``).
+case2 has its closed-form Jacobian too, for the dense W-solve of
+``ode/batch_solve.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from crnn_tpu_torch.ode.base import autonomous
+
 # case1 rate constants (case1/case1.jl:38-44).
 CASE1_K = (0.1, 0.2, 0.13, 0.3)
 # Robertson rate constants (robertson/rober_crnn.jl:54-61).
 ROBERTSON_K = (4e-2, 3e7, 1e4)
+# MAPK cascade rate constants (case3/case3.jl:83-103).
+CASE3_K = (1.0,) * 8
+# case1 rev: every forward and backward rate 1 (case1 rev/case1.jl:37-43).
+REVERSIBLE_K = (1.0,) * 8
+# gene regulatory network (gene-regulatory.jl:77-129).
+GRN_K = (1.8, 2.1, 1.3, 1.5, 2.2, 2.0, 2.0, 2.5, 3.2, 3.0, 2.3, 2.5, 6.0, 4.0,
+         3.0)
 # Biodiesel transesterification constants (case2/case2.jl:55-59).
 CASE2_LOGA = (18.60, 19.13, 7.93)
 CASE2_EA = (14.54, 14.42, 6.47)  # kcal/mol
@@ -35,6 +45,7 @@ def _rates(y, k):
     return r1, r2, r3
 
 
+@autonomous
 def case2_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """6 species + T (case2/case2.jl:37-51): y (B, 7), k (B, 3) -> (B, 7);
     dT/dt = 0."""
@@ -67,6 +78,7 @@ def case2_truth_jac(t, y: torch.Tensor, k: torch.Tensor):
     return case2_truth(t, y, k), jac
 
 
+@autonomous
 def case1_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """5 species / 4 reactions, isothermal (case1/case1.jl:38-44):
     2A->B (r~A^2), A->C, C->D, B+D->E. y (B, 5), k (B, 4) -> (B, 5)."""
@@ -77,6 +89,7 @@ def case1_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.stack([-2.0 * r1 - r2, r1 - r4, r2 - r3, r3 - r4, r4], dim=1)
 
 
+@autonomous
 def robertson_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Robertson's stiff problem (robertson/rober_crnn.jl:54-61):
     y (B, 3), k (B, 3) -> (B, 3)."""
@@ -84,3 +97,49 @@ def robertson_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     r2 = k[:, 1] * y[:, 1] * y[:, 1]
     r3 = k[:, 2] * y[:, 1] * y[:, 2]
     return torch.stack([-r1 + r3, r1 - r2 - r3, r2], dim=1)
+
+
+@autonomous
+def case3_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """MAPK cascade, 9 species / 8 reactions (case3/case3.jl:83-103):
+    y (B, 9), k (B, 8) -> (B, 9); species 0 is constant."""
+    r1 = k[:, 0] * y[:, 0] * y[:, 1]
+    r2 = k[:, 1] * y[:, 2] * y[:, 3]
+    r3 = k[:, 2] * y[:, 4] * y[:, 5]
+    r4 = k[:, 3] * y[:, 6] * y[:, 7]
+    r5 = k[:, 4] * y[:, 2]
+    r6 = k[:, 5] * y[:, 4]
+    r7 = k[:, 6] * y[:, 6]
+    r8 = k[:, 7] * y[:, 8]
+    return torch.stack([torch.zeros_like(r1), -r1 + r5, r1 - r5, -r2 + r6,
+                        r2 - r6, -r3 + r7, r3 - r7, -r4 + r8, r4 - r8], dim=1)
+
+
+@autonomous
+def reversible_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """case1 rev: A<->B, B<->C, C<->D, 2C<->D+E, mass action
+    (case1 rev/case1.jl:37-43): y (B, 5), k (B, 8) -> (B, 5)."""
+    a, b, c, d, e = y.unbind(dim=1)
+    r1 = k[:, 0] * a - k[:, 1] * b
+    r2 = k[:, 2] * b - k[:, 3] * c
+    r3 = k[:, 4] * c - k[:, 5] * d
+    r4 = k[:, 6] * c ** 2 - k[:, 7] * d * e
+    return torch.stack([-r1, r1 - r2, r2 - r3 - 2.0 * r4, r3 + r4, r4], dim=1)
+
+
+@autonomous
+def grn_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Repressilator-like gene regulatory network, 9 species / 15 reactions
+    (gene-regulatory.jl:77-129): y (B, 9), k (B, 15) -> (B, 9). The DNA
+    species 0, 3 and 6 are constant: their rows are exact zeros."""
+    r = [k[:, 0] * y[:, 0], k[:, 1] * y[:, 1], k[:, 2] * y[:, 1],
+         k[:, 3] * y[:, 2], k[:, 4] * y[:, 3], k[:, 5] * y[:, 4],
+         k[:, 6] * y[:, 4], k[:, 7] * y[:, 5], k[:, 8] * y[:, 6],
+         k[:, 9] * y[:, 7], k[:, 10] * y[:, 7], k[:, 11] * y[:, 8],
+         k[:, 12] * y[:, 7] * y[:, 2],     # mRNA_C + A -> A
+         k[:, 13] * y[:, 4] * y[:, 8],     # mRNA_B + C -> C
+         k[:, 14] * y[:, 1] * y[:, 5]]     # mRNA_A + B -> B
+    z = torch.zeros_like(r[0])
+    return torch.stack([z, r[0] - r[2] - r[14], r[1] - r[3], z,
+                        r[4] - r[6] - r[13], r[5] - r[7], z,
+                        r[8] - r[10] - r[12], r[9] - r[11]], dim=1)

@@ -1,5 +1,6 @@
 """CRNN right-hand sides, lane-batched (port of crnn_tpu/models/crnn.py:
-make_crnn_rhs, make_crnn_scaled_rhs and make_crnn_arrhenius_rhs).
+make_crnn_rhs, make_crnn_scaled_rhs, make_crnn_arrhenius_rhs and
+make_crnn_reversible_rhs).
 
     du = w_out @ exp(min(w_in^T @ log(clip(y, lb, ub)) + w_b, exp_cap))
 
@@ -9,15 +10,21 @@ the shape of the isothermal kernel (``ops/csrc/crnn_rhs.cu``) and of the
 Arrhenius kernel (``ops/csrc/arrhenius_rhs.cu``, y (B, ns+1) with T last):
 every call on a CUDA tensor is one kernel launch, with the backward by
 autograd of the plain version. The exponent cap of 32 keeps the rates of wild trial steps
-finite, so reverse-mode gradients are not poisoned by inf * 0.
+finite, so reverse-mode gradients are not poisoned by inf * 0. Every RHS
+here is independent of t and is declared so (``ode/base.py:autonomous``).
+The reversible RHS has no kernel in either package: it is plain torch on
+every device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 
+from crnn_tpu_torch import clip
+from crnn_tpu_torch.ode.base import autonomous
 from crnn_tpu_torch.ops.crnn_kernels import (make_arrhenius_ops,
                                              make_crnn_rhs_op)
 
@@ -28,6 +35,7 @@ def make_crnn_rhs(lb: float, ub: float, exp_cap: float = 32.0,
     version in place of the kernel on any device."""
     op = make_crnn_rhs_op(lb, ub, exp_cap, plain)
 
+    @autonomous
     def rhs(t, y, w):
         return op(y, w.w_in, w.w_b, w.w_out)
 
@@ -40,6 +48,7 @@ def make_crnn_scaled_rhs(lb: float, ub: float, dydt_scale: torch.Tensor,
     the isothermal RHS times ``dydt_scale = yscale / t_end`` (ns,)."""
     op = make_crnn_rhs_op(lb, ub, exp_cap, plain)
 
+    @autonomous
     def rhs(t, y, w):
         return op(y, w.w_in, w.w_b, w.w_out) * dydt_scale
 
@@ -54,7 +63,32 @@ def make_crnn_arrhenius_rhs(lb: float, ub: float, exp_cap: float = 32.0,
     on a CUDA tensor; ``plain=True`` runs the plain version on any device."""
     op = make_arrhenius_ops(lb, ub, exp_cap, plain)[0]
 
+    @autonomous
     def rhs(t, y, w):
         return op(y, w.w_in, w.w_b, w.w_out)
+
+    return rhs
+
+
+def _capped_exp(z, exp_cap):
+    return torch.exp(torch.minimum(z, z.new_full((), exp_cap)))
+
+
+def make_crnn_reversible_rhs(lb: float, order_clip: float = 2.5,
+                             exp_cap: float = 32.0) -> Callable:
+    """Reversible CRNN with Kc = 1 (case1 rev/case1.jl:81-90): the forward
+    and backward orders come from the shared w_out, ``clip(-w_out, 0,
+    order_clip)`` and ``clip(w_out, 0, order_clip)``, and ``du = w_out @
+    (exp(f) - exp(b))`` with the biases ``w_b`` and ``w_kb``; y is clipped
+    to [lb, inf). ``rhs(t, y (B, ns), w) -> (B, ns)``."""
+
+    @autonomous
+    def rhs(t, y, w):
+        w_in_f = clip(-w.w_out, 0.0, order_clip)
+        w_in_b = clip(w.w_out, 0.0, order_clip)
+        logx = torch.log(clip(y, lb, math.inf))
+        fwd = _capped_exp(logx @ w_in_f + w.w_b, exp_cap)
+        bwd = _capped_exp(logx @ w_in_b + w.w_kb, exp_cap)
+        return (fwd - bwd) @ w.w_out.T
 
     return rhs

@@ -23,6 +23,18 @@ import torch
 RHS = Callable[[Any, Any, Any], Any]
 
 
+def autonomous(f: RHS) -> RHS:
+    """Declare the RHS ``f`` independent of t, where it is written. A solver
+    that needs df/dt (Rosenbrock23) takes it as exactly 0 for a declared RHS
+    and computes it by forward mode in t for any other."""
+    f.autonomous = True
+    return f
+
+
+def is_autonomous(f: RHS) -> bool:
+    return getattr(f, "autonomous", False)
+
+
 class StepResult(NamedTuple):
     """Outcome of one attempted step of size ``dt`` from ``(t, y)``."""
 

@@ -11,10 +11,11 @@ crnn_tpu/ode/rosenbrock.py:Rosenbrock23).
     err = dt/6 * (k1 - 2 k2 + k3)
 
 Each lane has its own W, inverted once per step by the port's no-pivot
-Gauss-Jordan (``ode/linsolve.py``) and shared by the three W-solves. The RHS
-is autonomous in every case of the port so far, so ``ft`` (the JAX
-package's ``jax.jvp`` in t) is exactly 0 and is left out;
-``nonautonomous=True`` raises until a case needs it.
+Gauss-Jordan (``ode/linsolve.py``) and shared by the three W-solves.
+``ft = df/dt`` at (t, y) comes from forward mode in t (``lane_dfdt``, the
+JAX package's ``jax.jvp``), unless the RHS is declared autonomous where it
+is written (``ode/base.py:autonomous``): then ft is exactly 0 and its two
+terms are left out.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 
 from crnn_tpu_torch import clip
 from crnn_tpu_torch.ode.base import (RHS, Solver, StepResult,
-                                     hermite_interp_matrix_from_endpoints)
+                                     hermite_interp_matrix_from_endpoints,
+                                     is_autonomous)
 from crnn_tpu_torch.ode.linsolve import inv_small_nopivot_minpiv, pivot_ok
 
 _D = 1.0 / (2.0 + math.sqrt(2.0))
@@ -46,22 +48,37 @@ def lane_jacfwd(fn, y: torch.Tensor) -> torch.Tensor:
     return cols.permute(1, 2, 0)
 
 
+def lane_dfdt(f: RHS, t: torch.Tensor, y: torch.Tensor, args) -> torch.Tensor:
+    """Per-lane ``df/dt (B, ns)`` at ``(t (B,), y (B, ns))``: one
+    ``torch.func.jvp`` in t with a tangent of ones, which gives every lane's
+    own df/dt because lanes are independent. ``f`` must be plain torch: the
+    kernel ops have no forward-mode rule, and through them this raises."""
+    try:
+        return torch.func.jvp(lambda tt: f(tt, y, args), (t,),
+                              (torch.ones_like(t),))[1]
+    except RuntimeError as err:
+        raise RuntimeError(
+            "Rosenbrock23 takes df/dt of an RHS that is not declared "
+            "autonomous by forward mode in t, which failed. An RHS on the "
+            "kernel ops has no forward-mode rule: declare a t-independent "
+            "RHS with crnn_tpu_torch.ode.base.autonomous where it is "
+            f"written. ({err})") from err
+
+
 class Rosenbrock23(Solver):
     """Adaptive 2(3) Rosenbrock-W method.
 
     ``jac(t (B,), y (B, ns), args) -> (B, ns, ns)`` gives a closed-form
     Jacobian (e.g. ``models/jacobian.py``); without it J is computed by
     forward mode (``lane_jacfwd``), the counterpart of ``jax.jacfwd``.
+    df/dt is computed by forward mode for every RHS not declared autonomous
+    (``lane_dfdt``).
     """
 
     order = 2
     n_stages = 3  # Hermite dense: [f0, f_end, (y1-y0)/dt]
 
-    def __init__(self, jac=None, nonautonomous: bool = False):
-        if nonautonomous:
-            raise NotImplementedError(
-                "Rosenbrock23 with a nonautonomous RHS (df/dt) is not ported "
-                "yet (crnn_tpu/ode/rosenbrock.py: ft by jax.jvp in t)")
+    def __init__(self, jac=None):
         self.jac = jac
 
     def init(self, f: RHS, t0, y0, args) -> Any:
@@ -86,12 +103,17 @@ class Rosenbrock23(Solver):
             return torch.einsum("bij,bj->bi", w_inv, v)
 
         h = dt[:, None]
-        k1 = wsolve(f0)
+        # the non-autonomous term dt*d*ft, in JAX's order; exactly 0 for a
+        # declared-autonomous RHS, so left out there
+        dtd_ft = (None if is_autonomous(f)
+                  else (dt * _D)[:, None] * lane_dfdt(f, t, y, args))
+        k1 = wsolve(f0 if dtd_ft is None else f0 + dtd_ft)
         f1 = f(t + 0.5 * dt, y + (0.5 * h) * k1, args)
         k2 = wsolve(f1 - k1) + k1
         y1 = y + h * k2
         f2 = f(t + dt, y1, args)
-        k3 = wsolve(f2 - _E32 * (k2 - f1) - 2.0 * (k1 - f0))
+        rhs3 = f2 - _E32 * (k2 - f1) - 2.0 * (k1 - f0)
+        k3 = wsolve(rhs3 if dtd_ft is None else rhs3 + dtd_ft)
         y_err = (h / 6.0) * (k1 - 2.0 * k2 + k3)
 
         dense = torch.stack([f0, f2, (y1 - y) / h], dim=1)

@@ -1,5 +1,6 @@
-"""Adam with coupled weight decay, written out by hand in optax's order
-(port of crnn_tpu/train/optimizers.py: adamw_like and expdecay_adamw).
+"""Adam with coupled weight decay, and NAdam, written out by hand in optax's
+order (port of crnn_tpu/train/optimizers.py: adamw_like, expdecay_adamw and
+nadam_like).
 
 One update, as ``optax.chain(clip_by_global_norm(grad_max),
 add_decayed_weights(wd), adam(lr, b1, b2, eps=1e-8))`` computes it:
@@ -7,7 +8,10 @@ add_decayed_weights(wd), adam(lr, b1, b2, eps=1e-8))`` computes it:
 1. clip by global norm (optional): ``g <- g if |g| < grad_max else
    g / |g| * grad_max``;
 2. coupled weight decay: ``g <- g + wd * p`` (Flux's ADAMW);
-3. Adam moments and bias correction at the incremented count;
+3. Adam moments and bias correction at the incremented count t; NAdam
+   (optax 0.2.6 ``scale_by_adam(nesterov=True)``, Dozat's variant, not
+   ``torch.optim.NAdam``'s momentum decay) takes ``mu_hat = b1 *
+   mu/(1-b1^(t+1)) + (1-b1) * g/(1-b1^t)``;
 4. step ``-lr(count) * update``, with ``lr`` the constant ``lr0``
    (``adamw_like``) or a staircase exponential decay floored at
    ``lr_floor``, evaluated in float32 at the pre-increment count
@@ -33,7 +37,8 @@ class AdamState(NamedTuple):
 
 @dataclass(frozen=True)
 class AdamWLike:
-    """``adamw_like``: Adam at the constant learning rate ``lr0``."""
+    """``adamw_like``: Adam at the constant learning rate ``lr0``;
+    ``nadam_like`` with ``nesterov``."""
 
     lr0: float
     b1: float = 0.9
@@ -41,6 +46,7 @@ class AdamWLike:
     eps: float = 1e-8
     weight_decay: float = 0.0
     grad_max: Optional[float] = None
+    nesterov: bool = False
 
     def init(self, params: torch.Tensor) -> AdamState:
         return AdamState(torch.zeros_like(params), torch.zeros_like(params), 0)
@@ -61,7 +67,11 @@ class AdamWLike:
         mu = (1 - self.b1) * g + self.b1 * state.mu
         nu = (1 - self.b2) * (g ** 2) + self.b2 * state.nu
         count_inc = state.count + 1
-        mu_hat = mu / (1 - self.b1 ** count_inc)
+        if self.nesterov:
+            mu_hat = (self.b1 * (mu / (1 - self.b1 ** (count_inc + 1)))
+                      + (1 - self.b1) * (g / (1 - self.b1 ** count_inc)))
+        else:
+            mu_hat = mu / (1 - self.b1 ** count_inc)
         nu_hat = nu / (1 - self.b2 ** count_inc)
         step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
         new_params = params + (-self.lr(state.count)) * step
@@ -94,6 +104,13 @@ def adamw_like(lr: float, b1: float = 0.9, b2: float = 0.999,
                grad_max: Optional[float] = None) -> AdamWLike:
     """Coupled-decay Adam at a constant lr (case1, robertson)."""
     return AdamWLike(lr, b1, b2, weight_decay=weight_decay, grad_max=grad_max)
+
+
+def nadam_like(lr: float, b1: float = 0.9, b2: float = 0.999,
+               grad_max: Optional[float] = None) -> AdamWLike:
+    """optax's ``nadam`` at a constant lr behind the optional global-norm
+    clip, no weight decay (case3/case3.jl:20)."""
+    return AdamWLike(lr, b1, b2, grad_max=grad_max, nesterov=True)
 
 
 def expdecay_adamw(lr0: float, decay_rate: float, decay_steps: int,

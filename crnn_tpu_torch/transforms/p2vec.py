@@ -1,18 +1,20 @@
 """Parameter vector -> physical CRNN weights (port of crnn_tpu/transforms/p2vec.py).
 
-The case1, case2 (Arrhenius) and robertson variants are ported. JAX's ``clip`` is
+The case1, case2 (Arrhenius), case3/GRN, robertson and case1 rev
+(reversible) variants are ported. JAX's ``clip`` is
 written as ``minimum(maximum(x, lo), hi)`` with tensor bounds
 (``crnn_tpu_torch.clip``): at a tie such as ``w_out == 0`` its gradient is
-0.5, as in JAX, where ``torch.clamp`` would give 1.
+0.5, as in JAX, where ``torch.clamp`` would give 1; likewise ``abs`` is
+``crnn_tpu_torch.absolute``, whose gradient at 0 is JAX's 1, not 0.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from crnn_tpu_torch import clip, resolve_device
+from crnn_tpu_torch import absolute, clip, resolve_device
 
 
 class CRNNWeights(NamedTuple):
@@ -21,6 +23,7 @@ class CRNNWeights(NamedTuple):
     w_in: torch.Tensor   # (n_features, nr) reaction orders (+ the Ea row)
     w_b: torch.Tensor    # (nr,) log rate-constant bias
     w_out: torch.Tensor  # (ns, nr) stoichiometric coefficients
+    w_kb: Optional[torch.Tensor] = None  # (nr,) reversible: backward log-k
 
 
 def p2vec_case2(p: torch.Tensor, ns: int, nr: int,
@@ -29,7 +32,7 @@ def p2vec_case2(p: torch.Tensor, ns: int, nr: int,
     slope = p[nr * (ns + 2)] * 100.0
     w_b = p[:nr] * slope
     w_out = p[nr:nr * (ns + 1)].reshape(ns, nr)
-    w_in_ea = torch.abs(p[nr * (ns + 1):nr * (ns + 2)] * slope)
+    w_in_ea = absolute(p[nr * (ns + 1):nr * (ns + 2)] * slope)
     w_in = clip(-w_out, 0.0, w_in_clip)
     w_in = torch.cat([w_in, w_in_ea[None, :]], dim=0)  # (ns+1, nr)
     return CRNNWeights(w_in=w_in, w_b=w_b, w_out=w_out)
@@ -70,7 +73,7 @@ def p2vec_robertson(p: torch.Tensor, ns: int, nr: int,
     """Product-tied: p = [w_b(nr) | w_out_raw(ns*nr) | w_in(ns*nr) | slope],
     w_b * 10|slope|, w_out = -w_in * 10^w_out_raw, w_in clipped to
     [0, 2.5] (robertson/rober_crnn.jl:80-92)."""
-    slope = torch.abs(p[-1])
+    slope = absolute(p[-1])
     w_b = p[:nr] * (10.0 * slope)
     w_in = p[nr * (ns + 1):nr * (2 * ns + 1)].reshape(ns, nr)
     w_out_raw = p[nr:nr * (ns + 1)].reshape(ns, nr)
@@ -86,4 +89,48 @@ def init_params_robertson(gen: torch.Generator, ns: int, nr: int,
     lim = (6.0 / (ns + nr)) ** 0.5
     p = (torch.rand(n, generator=gen, dtype=dtype) * 2.0 - 1.0) * lim
     p[-1] = 0.1
+    return p.to(resolve_device(device))
+
+
+def p2vec_case3(p: torch.Tensor, ns: int, nr: int, w_in_clip: float = 4.0,
+                frozen_rows: Optional[Sequence[int]] = None) -> CRNNWeights:
+    """Product-tied: p = [w_b(nr) | w_out_raw(ns*nr) | w_in(ns*nr) | slope
+    (unused)], w_out = -w_in * |w_out_raw| from the unclipped w_in, then
+    w_in clipped to [0, 4] (case3/case3.jl:42-53). ``frozen_rows`` (the
+    GRN's DNA species, gene-regulatory.jl:44) zeroes those rows of
+    w_out_raw before the tie, so they are never produced or consumed."""
+    w_b = p[:nr]
+    w_out_raw = p[nr:nr * (ns + 1)].reshape(ns, nr)
+    w_in = p[nr * (ns + 1):nr * (2 * ns + 1)].reshape(ns, nr)
+    if frozen_rows is not None:
+        mask = torch.ones((ns, 1), dtype=p.dtype, device=p.device)
+        mask[list(frozen_rows)] = 0.0
+        w_out_raw = w_out_raw * mask
+    w_out = -w_in * absolute(w_out_raw)
+    return CRNNWeights(w_in=clip(w_in, 0.0, w_in_clip), w_b=w_b, w_out=w_out)
+
+
+def init_params_case3(gen: torch.Generator, ns: int, nr: int,
+                      dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """case3/case3.jl:34-36: robertson's layout and law (U(-1, 1) *
+    sqrt(6/(ns+nr)) of length nr*(2ns+1)+1, the slope 0.1 last), f32 by
+    default. ``gen`` is a CPU generator."""
+    return init_params_robertson(gen, ns, nr, dtype=dtype, device=device)
+
+
+def p2vec_reversible(p: torch.Tensor, ns: int, nr: int,
+                     w_out_clip: float = 2.5) -> CRNNWeights:
+    """Reversible pairs sharing w_out with Kc = 1: p = [w_kf(nr) |
+    w_out(ns*nr)], w_out clipped to [-2.5, 2.5], w_kb = w_kf (case1
+    rev/case1.jl:72-78). The RHS derives both order matrices from w_out;
+    ``w_in`` carries w_out as in the JAX package."""
+    w_kf = p[:nr]
+    w_out = clip(p[nr:].reshape(ns, nr), -w_out_clip, w_out_clip)
+    return CRNNWeights(w_in=w_out, w_b=w_kf, w_out=w_out, w_kb=w_kf)
+
+
+def init_params_reversible(gen: torch.Generator, ns: int, nr: int,
+                           dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """N(0, 0.25) of length nr*(ns+1). ``gen`` is a CPU generator."""
+    p = 0.5 * torch.randn(nr * (ns + 1), generator=gen, dtype=dtype)
     return p.to(resolve_device(device))

@@ -1,5 +1,6 @@
 """Weight pruning (port of crnn_tpu/transforms/pruning.py:hard_threshold,
-prune_case2_params)."""
+relative_threshold, prune_case2_params). Every mask is detached, so pruned
+fine-tuning trains the kept entries only."""
 
 from __future__ import annotations
 
@@ -10,6 +11,17 @@ def hard_threshold(w: torch.Tensor, cutoff: float) -> torch.Tensor:
     """Zero entries with |w| < cutoff (the mask carries no gradient)."""
     mask = (torch.abs(w) >= cutoff).to(w.dtype).detach()
     return w * mask
+
+
+def relative_threshold(w_out: torch.Tensor, dy_scale: torch.Tensor,
+                       cutoff: float) -> torch.Tensor:
+    """case3-style pruning (case3_pruning.jl:243-248): each reaction's row of
+    ``w_out^T * dy_scale`` over its signed row max; entries whose |ratio| is
+    below ``cutoff`` are zeroed in w_out."""
+    w_scaled = w_out.T * dy_scale[None, :]                  # (nr, ns)
+    w_rel = w_scaled / w_scaled.amax(dim=1, keepdim=True)
+    mask = (torch.abs(w_rel) >= cutoff).to(w_out.dtype).detach().T
+    return w_out * mask
 
 
 def prune_case2_params(p: torch.Tensor, ns: int, nr: int,

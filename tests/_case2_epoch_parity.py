@@ -1,13 +1,16 @@
 """Helper of the whole-epoch parity tests (tests/test_torch_case2_epoch*.py,
-tests/test_torch_case1_epoch.py, tests/test_torch_robertson_epoch.py): one
-batch-mode training epoch, crnn_tpu_torch against crnn_tpu.
+tests/test_torch_case1_epoch.py, tests/test_torch_robertson_epoch.py,
+tests/test_torch_case3.py, tests/test_torch_case1_rev.py): one batch-mode
+training epoch, crnn_tpu_torch against crnn_tpu.
 
 The JAX run trains one epoch; its params, optax state (whatever the
 optimizer's chain) and dataset (with its truth-solve ``success``) cross to
 the port through crnn_tpu_torch.convert, and both packages run the second
 epoch on the same permutation and horizon masks, which JAX drew from its
-key. The epoch compared is the second one, so the optimizer state (mu, nu,
-count=1) is not trivial. In f64 the two run the same arithmetic up to
+key. Gradients are taken in the trainer's ``grad_mode``: reverse mode
+through the scan, or forward mode through the early-exit while driver
+(case1 rev). The epoch compared is the second one, so the optimizer state
+(mu, nu, count=1) is not trivial. In f64 the two run the same arithmetic up to
 summation order: loss, gradient, updated params, eval losses and metrics
 agree at rtol 1e-6. In f32 the rounding of ~128 solver steps accumulates:
 rtol 1e-3.
@@ -46,10 +49,19 @@ def check_epoch_vs_jax(jsetup, build_port, n_train: int, rtol: float):
         def j_mean_loss(p):
             return jnp.mean(jtrainer.loss_batch(p, perm, masks))
     else:                                    # per-lane cases under vmap
+        # forward mode differentiates the while driver's loss
+        # (crnn_tpu/train/loop.py:157-166)
+        j_loss_i = (jtrainer.loss_i_exp_eval if jtrainer.grad_mode == "fwd"
+                    else jtrainer.loss_i_exp)
+
         def j_mean_loss(p):
             return jnp.mean(jax.vmap(
-                lambda i, m: jtrainer.loss_i_exp(p, i, m))(perm, masks))
-    j_loss, j_grad = jax.value_and_grad(j_mean_loss)(state1.params)
+                lambda i, m: j_loss_i(p, i, m))(perm, masks))
+    if jtrainer.grad_mode == "fwd":
+        j_loss = j_mean_loss(state1.params)
+        j_grad = jax.jacfwd(j_mean_loss)(state1.params)
+    else:
+        j_loss, j_grad = jax.value_and_grad(j_mean_loss)(state1.params)
 
     ds = jsetup.dataset
     dataset = convert.dataset_from_jax(

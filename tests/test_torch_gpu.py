@@ -566,3 +566,92 @@ def test_case2_sequential_forward_mode_evaluates_on_the_kernels(
     assert state.opt_state.count == 4
     assert bool(torch.isfinite(m.loss_exp).all())
     assert bool(torch.isfinite(m.grad_norm))
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-6), (np.float64, 1e-12)])
+@pytest.mark.parametrize("ub", [100.0, np.inf])
+@pytest.mark.parametrize("ns,nr", [(9, 8), (9, 15)])
+def test_crnn_rhs_kernel_at_case3_and_grn_shapes(cuda_device, dtype, tol, ub,
+                                                 ns, nr):
+    """Kernel 4 at the 100 lanes of case3 (ns=9, nr=8) and of the GRN
+    (nr=15), ub = 100 as they run it and inf, against its plain version."""
+    args = _iso_inputs(100, dtype, cuda_device, ns, nr)
+    before = tk.crnn_rhs_batched.launches
+    du = tk.crnn_rhs_batched(*args, LB, ub)
+    torch.cuda.synchronize()
+    assert tk.crnn_rhs_batched.launches == before + 1
+    _same_nonfinite_and_close_per_component(
+        du, tk.crnn_rhs_batched_reference(*args, LB, ub), tol)
+
+
+@pytest.mark.parametrize("variant", ["case3", "grn"])
+def test_case3_and_grn_epoch_on_kernel_path(cuda_device, variant):
+    """One f64 epoch of case3 (log-space MAE, NAdam, updates over every
+    experiment) and of the GRN (frozen rows, stochastic horizons) at a
+    reduced size on the card: the kernel path launches kernel 4, and agrees
+    with the plain path on the same params, perm and masks at rtol 1e-9
+    (gradient, eval losses, params)."""
+    import dataclasses
+
+    from crnn_tpu_torch.cases import case3
+
+    kw = dict(n_exp_train=6, n_exp_test=2, datasize=20, dtype="float64")
+    base_cfg = (case3.grn_config() if variant == "grn"
+                else case3.Case3Config())
+    if variant == "grn":
+        kw["horizon"] = (2, 20)
+    setup = case3.build(dataclasses.replace(base_cfg, **kw))
+    plain = case3.build(dataclasses.replace(base_cfg, rhs_plain=True, **kw),
+                        dataset=setup.dataset)
+    trainer = setup.trainer
+    gen = torch.Generator().manual_seed(0)
+    perm = torch.randperm(trainer.n_exp_update or trainer.n_exp_train,
+                          generator=gen)
+    masks = trainer.sample_masks(gen, perm.shape[0], torch.float64)
+    tk.crnn_rhs_batched.launches = 0
+    state, m = trainer.epoch(trainer.init(setup.init_params), perm, masks)
+    torch.cuda.synchronize()
+    launches = tk.crnn_rhs_batched.launches
+    assert launches > 0
+    sp, mp = plain.trainer.epoch(plain.trainer.init(plain.init_params), perm,
+                                 masks)
+    assert tk.crnn_rhs_batched.launches == launches
+    assert bool(torch.isfinite(m.loss_exp).all())
+    torch.testing.assert_close(m.loss_exp, mp.loss_exp, rtol=1e-9, atol=0)
+    torch.testing.assert_close(m.grad_norm, mp.grad_norm, rtol=1e-9, atol=0)
+    torch.testing.assert_close(state.params, sp.params, rtol=1e-9,
+                               atol=1e-9 * float(sp.params.abs().max()))
+
+
+def test_t_dependent_rosenbrock23_on_card_equals_cpu(cuda_device):
+    """The per-lane Rosenbrock23 takes df/dt of an RHS that is not declared
+    autonomous (a temperature ramp in Arrhenius rates) by forward mode in t
+    on the card as on the CPU: n_steps exact, ys within 1e-9 of each
+    component's largest value (f64)."""
+    from crnn_tpu_torch.ode.rosenbrock import Rosenbrock23
+    from crnn_tpu_torch.ode.solve import odesolve
+
+    def ramp_rhs(t, y, k):
+        temp = 300.0 + 40.0 * t
+        r1 = torch.exp(k[:, 0] - k[:, 1] / temp) * y[:, 0]
+        r2 = torch.exp(k[:, 2] - k[:, 3] / temp) * y[:, 1]
+        return torch.stack([-r1, r1 - r2, r2], dim=1)
+
+    rng = np.random.default_rng(0)
+    u0 = np.zeros((4, 3))
+    u0[:, 0] = rng.uniform(0.5, 1.5, size=4)
+    k = np.stack([10.0 + rng.uniform(-0.5, 0.5, size=4), np.full(4, 3000.0),
+                  12.0 + rng.uniform(-0.5, 0.5, size=4), np.full(4, 3000.0)],
+                 axis=1)
+    saveat = np.linspace(0.0, 5.0, 12)
+    sols = [odesolve(ramp_rhs, Rosenbrock23(),
+                     torch.from_numpy(u0).to(dev), 0.0, 5.0,
+                     torch.from_numpy(saveat).to(dev),
+                     args=torch.from_numpy(k).to(dev), rtol=1e-3, atol=1e-6,
+                     max_steps=4096, unroll="while")
+            for dev in (cuda_device, "cpu")]
+    assert torch.equal(sols[0].n_steps.cpu(), sols[1].n_steps)
+    assert bool(sols[1].success.all())
+    got, want = sols[0].ys.cpu(), sols[1].ys
+    scale = want.abs().amax(dim=(0, 1))
+    assert float(((got - want).abs() / scale).max()) <= 1e-9

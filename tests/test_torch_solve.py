@@ -274,5 +274,19 @@ def test_lane_jacfwd_matches_jax_jacfwd():
 
 
 def test_nonautonomous_rosenbrock_raises():
-    with pytest.raises(NotImplementedError, match="nonautonomous"):
-        Rosenbrock23(nonautonomous=True)
+    """An RHS on the kernel ops that is not declared autonomous makes
+    Rosenbrock23 take df/dt by forward mode, which the kernel ops refuse:
+    the step raises and names the declaration (it never computes a wrong
+    ft). The declared RHS, the same op, solves."""
+    u0, p, saveat, dydt_scale = _robertson_problem(2)
+    ds = torch.from_numpy(dydt_scale)
+    rhs = make_crnn_scaled_rhs(LB_R, math.inf, ds)
+    solver = Rosenbrock23(jac=make_crnn_scaled_jac(LB_R, math.inf, ds))
+    w = p2vec_robertson(torch.as_tensor(p), NS_R, NR_R)
+    kw = dict(args=w, rtol=1e-3, atol=1e-6, max_steps=4, unroll="while")
+    with pytest.raises(RuntimeError, match="not declared autonomous"):
+        odesolve(lambda t, y, a: rhs(t, y, a), solver, torch.from_numpy(u0),
+                 0.0, float(saveat[-1]), torch.from_numpy(saveat), **kw)
+    sol = odesolve(rhs, solver, torch.from_numpy(u0), 0.0, float(saveat[-1]),
+                   torch.from_numpy(saveat), **kw)
+    assert bool((sol.n_steps == 4).all())
