@@ -112,7 +112,29 @@ Phases, each printed with the seconds it took:
    kernel's count 0 (its reversible RHS is plain torch, as in JAX); (d)
    the per-lane Rosenbrock23 on a t-dependent RHS (``ramp_rhs``, df/dt by
    forward mode in t) in f64 on the card against the same solve on the
-   CPU: n_steps exact, ys within 1e-9 of each component's largest value.
+   CPU: n_steps exact, ys within 1e-9 of each component's largest value;
+12. ODE suite: (a) TRBDF2, Kvaerno3, ``AutoSwitch(Tsit5(), TRBDF2())``
+   and ``AutoSwitch(Tsit5(), Rosenbrock23())`` on Robertson in f64, three
+   lanes of different stiffness in one batch, on the card against the CPU:
+   n_steps and every lane's final ``is_stiff`` exact, ys within 1e-9 of
+   each component's largest value; (b) per-lane case2
+   (``Case2Config(batch_major=False)``) under
+   ``solver='auto_tsit5_rosenbrock23'`` and ``'trbdf2'``: one f32 epoch
+   each through run_case with kernels 1 and 2 counted and timed, and an f64
+   epoch on the kernel path against the plain path at rtol 1e-9 or 3x the
+   plain path's own move under one ulp of the params, whichever is larger
+   (AutoSwitch's f64 gradient moves by ~4e-8 and its eval losses by ~2e-6;
+   kernel launches counted); (c) robertson with ``grad_path='adjoint'``: an f64
+   epoch on the kernel path (kernels 4 and 5 counted) against the plain
+   path at rtol 1e-9, its seconds beside a ``'rev_scan'`` epoch's; (d)
+   ``run_lm_finish`` for 20 iterations from phase 9's trained params, on
+   the card and on the CPU: cost histories within 1e-9 or 3x the CPU's own
+   move under one ulp of the params (CG on the ill-conditioned damped
+   normal equations carries rounding into the steps), not increasing, at
+   least one step taken (3 iterations take none: lambda starts at 1e-3
+   and grows 3x a rejection); (e) a
+   robertson epoch with a ``w_out_mask``: the pruned w_out entries exactly
+   0.
 
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
@@ -1417,35 +1439,50 @@ def train_case(module, cfg, n_epoch, counters, launch=True):
 
 
 def compare_f64_epochs(module, cfg_cls, dataset, params, perm, masks, label,
-                       rtol=1e-9, **kw):
+                       rtol=1e-9, counters=(), **kw):
     """A whole f64 epoch on the kernel path against the plain path from the
     same params, perm and masks: loss, grad, eval losses and updated params
-    at ``rtol`` (plus rtol of the largest entry for entries near 0). Returns
-    the two epochs' seconds."""
+    at ``rtol`` (plus rtol of the largest entry for entries near 0; a dict
+    gives each quantity its own). Every
+    counter of ``counters`` is set to 0 just before the kernel path's epoch
+    and read just after (each must be > 0). Returns the two epochs' seconds
+    and the kernel path's launches."""
     results = []
+    launches = []
     for plain in (False, True):
         s = module.build(cfg_cls(dtype="float64", rhs_plain=plain, **kw),
                          dataset=dataset)
         loss, g = s.trainer.value_and_grad(params, perm, masks)
         torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
         t0 = time.perf_counter()
         state, m = s.trainer.epoch(s.trainer.init(params), perm, masks)
         torch.cuda.synchronize()
         results.append((loss, g, m, state.params, time.perf_counter() - t0))
+        if not plain:
+            launches = [c.launches for c in counters]
+    if counters:
+        print(f"  {label} f64 kernel-path epoch launches " + ", ".join(
+            f"{c.__name__}={n}" for c, n in zip(counters, launches)))
+        if min(launches) == 0:
+            fail(f"{label}: a kernel of its path launched 0 times: "
+                 f"{launches}")
     (lk, gk, mk, pk, tk), (lp, gp, mp, pp, tp) = results
     print(f"  {label} f64 epoch s: kernel path {tk:.3f}, plain path {tp:.3f}")
     for name, a, b in (("loss", lk, lp), ("grad", gk, gp),
                        ("eval losses", mk.loss_exp, mp.loss_exp),
                        ("params", pk, pp)):
+        tol = rtol[name] if isinstance(rtol, dict) else rtol
         rel = float(((a - b).abs() / b.abs().max()).max())
         ok = bool(torch.isfinite(a).all()) and bool(
-            ((a - b).abs() <= rtol * (b.abs() + b.abs().max())).all())
+            ((a - b).abs() <= tol * (b.abs() + b.abs().max())).all())
         print(f"  kernel vs plain {label} f64 {name}: max rel err {rel:.3e} "
               f"ok={ok}")
         if not ok:
             fail(f"{label}: kernel path f64 {name} disagrees with the plain "
                  "path")
-    return tk, tp
+    return tk, tp, launches
 
 
 def run_case1(gen) -> dict:
@@ -1506,7 +1543,7 @@ def run_robertson(gen) -> dict:
                                                  crnn_rhs_jac_batched)
 
     cfg = robertson.RobertsonConfig()
-    setup, _, hist, (n_rhs, n_jac) = train_case(
+    setup, state, hist, (n_rhs, n_jac) = train_case(
         robertson, cfg, 2, (crnn_rhs_batched, crnn_rhs_jac_batched))
     ds = setup.dataset
     print(f"  robertson truth: success {int(ds.success.sum())}/{cfg.n_exp}, "
@@ -1516,12 +1553,13 @@ def run_robertson(gen) -> dict:
     trainer = setup.trainer
     perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
     masks = trainer.sample_masks(gen, cfg.n_exp_train, torch.float64)
-    tk, tp = compare_f64_epochs(robertson, robertson.RobertsonConfig, ds,
-                                setup.init_params, perm, masks, "robertson")
+    tk, tp, _ = compare_f64_epochs(robertson, robertson.RobertsonConfig, ds,
+                                   setup.init_params, perm, masks,
+                                   "robertson")
     return {"launches": n_jac, "launches_per_epoch": n_jac / 2,
             "rhs_launches": n_rhs, "robertson_epoch_s": hist["epoch_s"],
             "robertson_f64_epoch_kernel_s": tk,
-            "robertson_f64_epoch_plain_s": tp}
+            "robertson_f64_epoch_plain_s": tp}, setup, state.params
 
 
 def run_runner(gen) -> dict:
@@ -1553,9 +1591,9 @@ def run_runner(gen) -> dict:
         "u0", "ys", "ys_clean", "ts", "yscale")})
     perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
     masks = torch.ones((cfg.n_exp_train, cfg.datasize), dtype=torch.float64)
-    tk, tp = compare_f64_epochs(case2, case2.Case2Config, ds64,
-                                setup.init_params.double(), perm, masks,
-                                "case2 per-lane", batch_major=False)
+    tk, tp, _ = compare_f64_epochs(case2, case2.Case2Config, ds64,
+                                   setup.init_params.double(), perm, masks,
+                                   "case2 per-lane", batch_major=False)
     out["arrhenius_rhs_jac"].update(per_lane_case2_f64_epoch_kernel_s=tk,
                                     per_lane_case2_f64_epoch_plain_s=tp)
 
@@ -1772,7 +1810,7 @@ def run_isothermal_family(gen) -> dict:
         ds64 = ds._replace(**{k: getattr(ds, k).double() for k in (
             "u0", "ys", "ys_clean", "ts", "yscale")})
         masks = trainer.sample_masks(gen, n_upd, torch.float64)
-        tk, tp = compare_f64_epochs(
+        tk, tp, _ = compare_f64_epochs(
             case3, functools.partial(dataclasses.replace, cfg), ds64,
             setup.init_params.double(), perm, masks, name)
         row.update({f"{name}_launches": launches,
@@ -1790,6 +1828,289 @@ def run_isothermal_family(gen) -> dict:
     # (d) the t-dependent Rosenbrock23
     check_t_dependent_rb23()
     return row
+
+
+def robertson_lanes_rhs(t, y, k):
+    """The Robertson system of tests/test_solvers.py with per-lane rate
+    constants ``k (B, 3)``, lanes ``y (B, 3)``; t-independent."""
+    r1 = k[:, 0] * y[:, 0]
+    r2 = k[:, 1] * y[:, 1] * y[:, 1]
+    r3 = k[:, 2] * y[:, 1] * y[:, 2]
+    return torch.stack([-r1 + r3, r1 - r2 - r3, r2], dim=-1)
+
+
+def check_solvers_card_vs_cpu() -> dict:
+    """Phase 12(a): TRBDF2, Kvaerno3 and AutoSwitch to TRBDF2 and to
+    Rosenbrock23 on Robertson over [0, 1e5] in f64, three lanes of different
+    stiffness in one batch (k = (4e-2, 3e7, 1e4), (4e-2, 3e5, 1e3) and the
+    slow (4e-6, 3e-3, 1e-3), which stays explicit), on the card against the
+    same solve on the CPU: n_steps exact, the final is_stiff of every lane
+    exact (AutoSwitch), ys within 1e-9 of each component's largest value.
+    Returns the card's seconds per solver."""
+    from crnn_tpu_torch.ode import (AutoSwitch, Kvaerno3, Rosenbrock23,
+                                    TRBDF2, Tsit5)
+    from crnn_tpu_torch.ode.base import autonomous
+    from crnn_tpu_torch.ode.solve import odesolve
+
+    class Recording(AutoSwitch):
+        """AutoSwitch that keeps every step's incoming ``is_stiff``."""
+
+        def __init__(self, stiff):
+            super().__init__(Tsit5(), stiff)
+            self.is_stiff = []
+
+        def step(self, f, t, y, dt, args, state):
+            self.is_stiff.append(state.is_stiff)
+            return super().step(f, t, y, dt, args, state)
+
+    f64 = torch.float64
+    rhs = autonomous(robertson_lanes_rhs)
+    k = torch.tensor([[4e-2, 3e7, 1e4], [4e-2, 3e5, 1e3], [4e-6, 3e-3, 1e-3]],
+                     dtype=f64)
+    y0 = torch.tensor([[1.0, 0.0, 0.0]] * 3, dtype=f64)
+    saveat = 10.0 ** torch.linspace(0.0, 5.0, 10, dtype=f64)
+    makers = {"trbdf2": TRBDF2, "kvaerno3": Kvaerno3,
+              "auto_tsit5_trbdf2": lambda: Recording(TRBDF2()),
+              "auto_tsit5_rosenbrock23": lambda: Recording(Rosenbrock23())}
+    seconds = {}
+    for name, make in makers.items():
+        sols, stiff, took = [], [], []
+        for dev in ("cuda", "cpu"):
+            solver = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sols.append(odesolve(rhs, solver, y0.to(dev), 0.0, 1e5,
+                                 saveat.to(dev), args=k.to(dev), rtol=1e-6,
+                                 atol=1e-10, max_steps=16384,
+                                 unroll="while"))
+            torch.cuda.synchronize()
+            took.append(time.perf_counter() - t0)
+            stiff.append(solver.is_stiff[-1].cpu().tolist()
+                         if isinstance(solver, Recording) else None)
+        card, cpu = sols
+        rel = rel_err_components(card.ys.cpu(), cpu.ys)
+        same_steps = torch.equal(card.n_steps.cpu(), cpu.n_steps)
+        print(f"  12(a) {name}: card {took[0]:.2f} s, CPU {took[1]:.2f} s; "
+              f"n_steps {cpu.n_steps.tolist()} equal {same_steps}; final "
+              f"is_stiff card {stiff[0]} CPU {stiff[1]}; ys max err "
+              f"{rel:.3e} of each component's largest value (gate 1e-9)")
+        if not (same_steps and stiff[0] == stiff[1]
+                and bool(cpu.success.all()) and rel <= 1e-9):
+            fail(f"12(a) {name}: the card's solve differs from the CPU's")
+        seconds[name] = took[0]
+    return seconds
+
+
+def f64_epoch_witness(module, cfg_cls, dataset, params, perm, masks, **kw):
+    """For each quantity ``compare_f64_epochs`` holds (loss, grad, eval
+    losses, params), how far one ulp of the params (all up, all down, two
+    draws of a random sign) moves the plain path's own f64 epoch, over the
+    quantity's largest entry: the conditioning witness of a kernel-against-
+    plain gate, as ``f32_losses_vs_plain`` takes it for f32 losses."""
+    s = module.build(cfg_cls(dtype="float64", rhs_plain=True, **kw),
+                     dataset=dataset)
+
+    def run(p):
+        loss, g = s.trainer.value_and_grad(p, perm, masks)
+        state, m = s.trainer.epoch(s.trainer.init(p), perm, masks)
+        return {"loss": loss, "grad": g, "eval losses": m.loss_exp,
+                "params": state.params}
+
+    base = run(params)
+    signs = torch.randint(0, 2, (2, *params.shape),
+                          generator=torch.Generator().manual_seed(0))
+    dirs = [torch.full_like(params, math.inf),
+            torch.full_like(params, -math.inf),
+            *((2.0 * signs - 1.0).to(params) * math.inf)]
+    moves = dict.fromkeys(base, 0.0)
+    for d in dirs:
+        out = run(torch.nextafter(params, params + d))
+        for k, v in out.items():
+            moves[k] = max(moves[k], float(((v - base[k]).abs()
+                                            / base[k].abs().max()).max()))
+    return moves
+
+
+def run_case2_solvers(gen) -> dict:
+    """Phase 12(b): per-lane case2 (``Case2Config(batch_major=False)``)
+    under ``solver='auto_tsit5_rosenbrock23'`` and ``'trbdf2'``: one f32
+    epoch each through run_case with kernels 1 and 2 counted (TRBDF2 takes
+    J by forward mode of the plain twin, so kernel 2 stays at 0 there), and
+    an f64 epoch on the kernel path against the plain path at rtol 1e-9, or
+    at 3x the plain path's own one-ulp move where that is larger
+    (``f64_epoch_witness``, AutoSwitch). Returns the counts and seconds by
+    kernel row."""
+    from crnn_tpu_torch.cases import case2
+    from crnn_tpu_torch.ops.crnn_kernels import (arrhenius_rhs_batched,
+                                                 arrhenius_rhs_jac_batched)
+
+    out = {"arrhenius_rhs": {}, "arrhenius_rhs_jac": {}}
+    for solver, key in (("auto_tsit5_rosenbrock23", "autoswitch"),
+                        ("trbdf2", "trbdf2")):
+        t0 = time.perf_counter()
+        cfg = case2.Case2Config(batch_major=False, solver=solver)
+        counters = (arrhenius_rhs_batched,) if solver == "trbdf2" else (
+            arrhenius_rhs_batched, arrhenius_rhs_jac_batched)
+        arrhenius_rhs_jac_batched.launches = 0
+        setup, _, hist, launches = train_case(case2, cfg, 1, counters)
+        n_jac = arrhenius_rhs_jac_batched.launches
+        print(f"  12(b) case2 per-lane {solver}: f32 epoch_s "
+              f"{hist['epoch_s']}, loss_train {hist['loss_train']}; "
+              f"arrhenius_rhs_batched={launches[0]}, "
+              f"arrhenius_rhs_jac_batched={n_jac}")
+        ds = setup.dataset
+        ds64 = ds._replace(**{k: getattr(ds, k).double() for k in (
+            "u0", "ys", "ys_clean", "ts", "yscale")})
+        perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
+        masks = torch.ones((cfg.n_exp_train, cfg.datasize),
+                           dtype=torch.float64)
+        # AutoSwitch's f64 epoch is ill-conditioned on the plain path
+        # itself: one ulp of the params moves its gradient by ~4e-8 and its
+        # eval losses by ~2e-6 (TRBDF2's gradient by ~5e-13), on the CPU.
+        # Gate each quantity at 1e-9 or 3x its own one-ulp move
+        p64 = setup.init_params.double()
+        rtol = 1e-9
+        if solver != "trbdf2":
+            witness = f64_epoch_witness(case2, case2.Case2Config, ds64, p64,
+                                        perm, masks, batch_major=False,
+                                        solver=solver)
+            rtol = {k: max(1e-9, 3.0 * w) for k, w in witness.items()}
+            print(f"  12(b) {solver}: one ulp of the params moves the plain "
+                  "path's f64 epoch by " + ", ".join(
+                      f"{k} {w:.3e}" for k, w in witness.items())
+                  + " of each one's largest; gate rtol " + ", ".join(
+                      f"{k} {r:.3e}" for k, r in rtol.items()))
+        tk, tp, (n_rhs64, *_) = compare_f64_epochs(
+            case2, case2.Case2Config, ds64, p64, perm, masks,
+            f"case2 per-lane {solver}", rtol=rtol, counters=counters,
+            batch_major=False, solver=solver)
+        out["arrhenius_rhs"].update({
+            f"per_lane_case2_{key}_launches": launches[0],
+            f"per_lane_case2_{key}_epoch_s": hist["epoch_s"],
+            f"per_lane_case2_{key}_f64_epoch_launches": n_rhs64,
+            f"per_lane_case2_{key}_f64_epoch_kernel_s": tk,
+            f"per_lane_case2_{key}_f64_epoch_plain_s": tp})
+        if solver != "trbdf2":
+            out["arrhenius_rhs_jac"].update({
+                f"per_lane_case2_{key}_launches": n_jac,
+                f"per_lane_case2_{key}_epoch_s": hist["epoch_s"]})
+        print(f"  12(b) {solver}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def run_robertson_suite(gen, setup, trained) -> dict:
+    """Phase 12(c)-(e) on phase 9's robertson dataset (f64): (c)
+    ``grad_path='adjoint'``: one epoch on the kernel path (kernels 4 and 5
+    counted, > 0) against the plain path at rtol 1e-9 (loss, gradient, eval
+    losses, params), its seconds beside a ``'rev_scan'`` epoch's; (d)
+    ``run_lm_finish`` with max_iters 20 from phase 9's trained params, on
+    the card and on the CPU: cost histories within 1e-9 (relative) or 3x
+    how far one ulp of the params moves the CPU's own history, not
+    increasing, at least one step taken (from lambda = 1e-3, growing 3x a
+    rejection, the first step is taken at ~17 iterations); (e) an epoch with a ``w_out_mask`` that prunes 5 of the 18
+    w_out entries: those entries exactly 0 after the update. Returns the
+    counts and seconds by kernel row."""
+    import numpy as np
+
+    from crnn_tpu_torch.cases import robertson
+    from crnn_tpu_torch.ops.crnn_kernels import (crnn_rhs_batched,
+                                                 crnn_rhs_jac_batched)
+
+    counters = (crnn_rhs_batched, crnn_rhs_jac_batched)
+    cfg = robertson.RobertsonConfig()
+    ds = setup.dataset
+    p0 = setup.init_params
+    perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
+    masks = setup.trainer.sample_masks(gen, cfg.n_exp_train, torch.float64)
+
+    # (c) the adjoint gradient path against rev_scan
+    t0 = time.perf_counter()
+    tk, tp, (n_rhs, n_jac) = compare_f64_epochs(
+        robertson, robertson.RobertsonConfig, ds, p0, perm, masks,
+        "robertson adjoint", counters=counters, grad_path="adjoint")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup.trainer.epoch(setup.trainer.init(p0), perm, masks)
+    torch.cuda.synchronize()
+    t_rev = time.perf_counter() - t1
+    print(f"  12(c) robertson f64 kernel-path epoch s: adjoint {tk:.3f}, "
+          f"rev_scan {t_rev:.3f} (plain-path adjoint {tp:.3f}); "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # (d) LM from phase 9's trained params, card against CPU. The damped
+    # normal equations are ill-conditioned (rank <= 20 of 43 params), and
+    # CG carries each run's rounding into its steps: one ulp of the params
+    # moves the CPU's own history by ~3e-3 (measured on the CPU). Gate at
+    # 1e-9 or 3x that witness, measured here on the CPU
+    t0 = time.perf_counter()
+    ds_cpu = ds._replace(**{f: getattr(ds, f).cpu() for f in ds._fields})
+    on_cpu = robertson.build(robertson.RobertsonConfig(device="cpu"),
+                             dataset=ds_cpu)
+    on_card = robertson.build(robertson.RobertsonConfig(), dataset=ds)
+
+    def lm_history(s, p):
+        t1 = time.perf_counter()
+        _, info = robertson.run_lm_finish(s, p, max_iters=20)
+        torch.cuda.synchronize()
+        return info["history"], time.perf_counter() - t1
+
+    def rel_diff(a, b):
+        if a.shape != b.shape:
+            return math.inf
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    for c in counters:
+        c.launches = 0
+    h_card, s_card = lm_history(on_card, trained)
+    l_card = [c.launches for c in counters]
+    p_cpu = trained.cpu()
+    h_cpu, s_cpu = lm_history(on_cpu, p_cpu)
+    witness = max(rel_diff(lm_history(on_cpu, torch.nextafter(
+        p_cpu, p_cpu + torch.full_like(p_cpu, d)))[0], h_cpu)
+        for d in (math.inf, -math.inf))
+    tol = max(1e-9, 3.0 * witness)
+    rel = rel_diff(h_card, h_cpu)
+    print(f"  12(d) LM finish, 20 iterations: history card {h_card.tolist()} "
+          f"(launches {l_card}: forward mode runs the plain ops), CPU "
+          f"{h_cpu.tolist()}; one ulp of the params moves the CPU's by "
+          f"{witness:.3e}; max rel diff {rel:.3e} (gate {tol:.3e}); card "
+          f"{s_card:.2f} s, CPU {s_cpu:.2f} s")
+    if not (rel <= tol and bool(np.all(np.diff(h_card) <= 0))
+            and h_card.shape[0] >= 2):
+        fail("12(d): the LM cost history differs from the CPU's, rose, or "
+             "took no step")
+    print(f"  12(d): {time.perf_counter() - t0:.2f} s")
+
+    # (e) w_out_mask
+    t0 = time.perf_counter()
+    mask = tuple(tuple(0.0 if (i + j) % 4 == 0 else 1.0
+                       for j in range(cfg.nr)) for i in range(cfg.ns))
+    s = robertson.build(robertson.RobertsonConfig(w_out_mask=mask),
+                        dataset=ds)
+    for c in counters:
+        c.launches = 0
+    state, m = s.trainer.epoch(s.trainer.init(s.init_params), perm, masks)
+    torch.cuda.synchronize()
+    w_out = s.weights_fn(state.params).w_out
+    keep = torch.tensor(mask, dtype=w_out.dtype, device=w_out.device)
+    pruned_zero = bool((w_out[keep == 0] == 0).all())
+    kept = bool((w_out[keep == 1] != 0).all())
+    launches = [c.launches for c in counters]
+    print(f"  12(e) w_out_mask epoch: loss_train {float(m.loss_train):.6e}, "
+          f"pruned w_out entries exactly 0 {pruned_zero}, kept entries "
+          f"non-zero {kept}, launches {launches}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (pruned_zero and kept and math.isfinite(float(m.loss_train))
+            and min(launches) > 0):
+        fail("12(e): the masked w_out entries are not 0, or the epoch "
+             "failed")
+    return {"crnn_rhs": {"robertson_adjoint_f64_epoch_launches": n_rhs,
+                         "robertson_adjoint_f64_epoch_s": tk,
+                         "robertson_rev_scan_f64_epoch_s": t_rev},
+            "crnn_rhs_jac": {"robertson_adjoint_f64_epoch_launches": n_jac,
+                             "robertson_adjoint_f64_epoch_s": tk,
+                             "robertson_lm_20_iters_card_s": s_card,
+                             "robertson_lm_20_iters_cpu_s": s_cpu}}
 
 
 def main() -> int:
@@ -1927,7 +2248,7 @@ def main() -> int:
         iso_row.update(run_case1(gen))
 
     with phase("9 robertson"):
-        rob = run_robertson(gen)
+        rob, rob_setup, rob_trained = run_robertson(gen)
         iso_row["robertson_launches"] = rob.pop("rhs_launches")
         iso_jac_row.update(rob)
 
@@ -1939,6 +2260,18 @@ def main() -> int:
 
     with phase("11 isothermal family"):
         iso_row.update(run_isothermal_family(gen))
+
+    with phase("12 ODE suite"):
+        t0 = time.perf_counter()
+        solver_s = check_solvers_card_vs_cpu()
+        print(f"  12(a): {time.perf_counter() - t0:.2f} s")
+        case2_rows = run_case2_solvers(gen)
+        kernel_row.update(case2_rows["arrhenius_rhs"])
+        jac_row.update(case2_rows["arrhenius_rhs_jac"])
+        rob_rows = run_robertson_suite(gen, rob_setup, rob_trained)
+        iso_row.update(rob_rows["crnn_rhs"])
+        iso_jac_row.update(rob_rows["crnn_rhs_jac"])
+        iso_row["ode_suite_card_s"] = solver_s
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("library_ms: null for every kernel: no single PyTorch call computes "

@@ -12,10 +12,15 @@ solve paths, as in the JAX package:
   (``ops/csrc/arrhenius_rhs.cu``), and in dense mode each step's value and
   Jacobian through ``ops/csrc/arrhenius_rhs_jac.cu``.
 - ``batch_major=False``, and the per-experiment loss of sequential mode:
-  the per-lane driver (``ode/solve.py:odesolve``) with ``solver``
-  (Rosenbrock23 with the closed-form J, or Tsit5). On a CUDA device every f
-  is one launch of the Arrhenius RHS kernel and every J one launch of the
-  value+Jacobian kernel.
+  the per-lane driver (``ode/solve.py:odesolve``) with ``solver``, any
+  name of ``ode/__init__.py:SOLVER_REGISTRY``: Rosenbrock23 with the
+  closed-form J, ``auto_tsit5_rosenbrock23`` (AutoSwitch to that
+  Rosenbrock23), Tsit5, TRBDF2, Kvaerno3 or ``auto_tsit5_trbdf2``. On a
+  CUDA device every f is one launch of the Arrhenius RHS kernel and every
+  closed-form J one launch of the value+Jacobian kernel. A solver without a
+  closed-form J (the ESDIRKs) takes J by forward mode of the plain twin of
+  the RHS, the function JAX's ``jacfwd`` differentiates, since the kernel
+  ops have no forward-mode rule; its f evaluations stay on the kernel.
 
 Modes: ``mode='batch'`` (one update per epoch) or ``'sequential'`` (one
 update per experiment, the lr-decay steps scaled by the updates per
@@ -29,7 +34,7 @@ pass among it, runs the kernels. The data are generated on the chosen
 device by the port's own solver.
 
     python -m crnn_tpu_torch.cases.case2 --epochs 3 [--device cpu]
-        [--mode sequential] [--solver tsit5] [--restart]
+        [--mode sequential] [--solver auto_tsit5_rosenbrock23] [--restart]
         [--epochs-per-dispatch N]
 """
 
@@ -47,8 +52,9 @@ from crnn_tpu_torch.data.truth import (CASE2_EA, CASE2_LOGA, case2_arrhenius,
                                        case2_truth, case2_truth_jac)
 from crnn_tpu_torch.models.crnn import make_crnn_arrhenius_rhs
 from crnn_tpu_torch.models.jacobian import make_crnn_arrhenius_jac
-from crnn_tpu_torch.ode import Rosenbrock23, get_solver
+from crnn_tpu_torch.ode import AutoSwitch, Rosenbrock23, Tsit5, get_solver
 from crnn_tpu_torch.ode.batch_solve import batch_odesolve_rb23
+from crnn_tpu_torch.ode.rosenbrock import lane_jacfwd
 from crnn_tpu_torch.ode.solve import odesolve
 from crnn_tpu_torch.ops.crnn_kernels import (make_arrhenius_factor_op,
                                              make_arrhenius_ops)
@@ -83,8 +89,9 @@ class Case2Config:
     p_cutoff: float = 0.0                   # case2_pruning: 0.01
     seed: int = 1234
     max_steps: int = 128
-    # the per-lane solver: 'rosenbrock23' (closed-form J) or 'tsit5'; the
-    # batch-major path is Rosenbrock23 whatever this says, as in JAX
+    # the per-lane solver, a name of ode/__init__.py:SOLVER_REGISTRY
+    # ('rosenbrock23' and 'auto_tsit5_rosenbrock23' with the closed-form
+    # J); the batch-major path is Rosenbrock23 whatever this says, as in JAX
     solver: str = "rosenbrock23"
     mode: str = "batch"
     dtype: str = "float32"
@@ -155,11 +162,22 @@ def build(cfg: Case2Config = Case2Config(),
     # -- the per-lane path (crnn_tpu/cases/case2.py:126-162)
     def make_predict_lanes(plain):
         rhs = make_crnn_arrhenius_rhs(cfg.lb, cfg.ub, plain=plain)
+        jac = make_crnn_arrhenius_jac(cfg.lb, cfg.ub, plain=plain)
         if cfg.solver == "rosenbrock23":
-            solver = Rosenbrock23(jac=make_crnn_arrhenius_jac(
-                cfg.lb, cfg.ub, plain=plain))
+            solver = Rosenbrock23(jac=jac)
+        elif cfg.solver == "auto_tsit5_rosenbrock23":
+            solver = AutoSwitch(Tsit5(), Rosenbrock23(jac=jac))
         else:
             solver = get_solver(cfg.solver)
+            # a solver without a closed-form J takes jacfwd of the RHS in
+            # JAX: here forward mode of the plain twin, as the kernel ops
+            # have no forward-mode rule (the f evaluations stay on them)
+            implicit = getattr(solver, "stiff", solver)
+            if hasattr(implicit, "jac") and implicit.jac is None:
+                rhs_plain = make_crnn_arrhenius_rhs(cfg.lb, cfg.ub,
+                                                    plain=True)
+                implicit.jac = lambda t, y, w: lane_jacfwd(
+                    lambda yy: rhs_plain(t, yy, w), y)
 
         def predict_from_u0(p, u0_b, unroll):
             sol = odesolve(rhs, solver, u0_b, 0.0, t1, dataset.ts,

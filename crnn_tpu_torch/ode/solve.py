@@ -66,8 +66,11 @@ class _Carry(NamedTuple):
 
 
 def _lane_select(pred, a, b):
-    """``where(pred, a, b)`` per lane for tensors whose leading axis is the
-    lane axis (the solver state)."""
+    """``where(pred, a, b)`` per lane for the solver state: a tensor whose
+    leading axis is the lane axis, or a tuple of them (AutoSwitch's
+    NamedTuple), selected field by field as JAX's ``_tree_select`` maps."""
+    if isinstance(a, tuple):
+        return type(a)(*(_lane_select(pred, x, y) for x, y in zip(a, b)))
     return torch.where(pred.view(-1, *([1] * (a.dim() - 1))), a, b)
 
 

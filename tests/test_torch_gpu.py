@@ -1,6 +1,8 @@
 """The CUDA kernels of crnn_tpu_torch on the card, against their plain
-PyTorch versions, at the tolerances of chip_smoke.py, and one case1 and one
-robertson epoch on the kernel path. Every test carries the ``gpu`` marker
+PyTorch versions, at the tolerances of chip_smoke.py; epochs of the cases
+on the kernel path; and the ODE suite on the card (the ESDIRK and
+AutoSwitch solvers against the CPU, per-lane case2 under them, robertson's
+adjoint path, w_out_mask and LM finish). Every test carries the ``gpu`` marker
 and skips where no card is present. The file imports no JAX, so on the card's machine (no
 JAX there) it runs without the repository's conftest:
 
@@ -655,3 +657,104 @@ def test_t_dependent_rosenbrock23_on_card_equals_cpu(cuda_device):
     got, want = sols[0].ys.cpu(), sols[1].ys
     scale = want.abs().amax(dim=(0, 1))
     assert float(((got - want).abs() / scale).max()) <= 1e-9
+
+
+def _robertson_lanes(t, y, k):
+    r1 = k[:, 0] * y[:, 0]
+    r2 = k[:, 1] * y[:, 1] * y[:, 1]
+    r3 = k[:, 2] * y[:, 1] * y[:, 2]
+    return torch.stack([-r1 + r3, r1 - r2 - r3, r2], dim=1)
+
+
+@pytest.mark.parametrize("name", ["trbdf2", "kvaerno3", "auto_tsit5_trbdf2",
+                                  "auto_tsit5_rosenbrock23"])
+def test_implicit_solvers_on_card_equal_cpu(cuda_device, name):
+    """TRBDF2, Kvaerno3 and both AutoSwitch pairs on Robertson lanes of
+    different stiffness in one batch (f64): the card's solve takes the
+    CPU's steps (n_steps exact), ys within 1e-9 of each component's
+    largest value."""
+    from crnn_tpu_torch.ode import get_solver
+    from crnn_tpu_torch.ode.base import autonomous
+    from crnn_tpu_torch.ode.solve import odesolve
+
+    k = torch.tensor([[4e-2, 3e7, 1e4], [4e-6, 3e-3, 1e-3]],
+                     dtype=torch.float64)
+    y0 = torch.tensor([[1.0, 0.0, 0.0]] * 2, dtype=torch.float64)
+    saveat = 10.0 ** torch.linspace(-1.0, 3.0, 9, dtype=torch.float64)
+    sols = [odesolve(autonomous(_robertson_lanes), get_solver(name),
+                     y0.to(dev), 0.0, 1e3, saveat.to(dev), args=k.to(dev),
+                     rtol=1e-6, atol=1e-10, max_steps=4096, unroll="while")
+            for dev in (cuda_device, "cpu")]
+    assert torch.equal(sols[0].n_steps.cpu(), sols[1].n_steps)
+    assert bool(sols[1].success.all())
+    got, want = sols[0].ys.cpu(), sols[1].ys
+    scale = want.abs().amax(dim=(0, 1))
+    assert float(((got - want).abs() / scale).max()) <= 1e-9
+
+
+@pytest.mark.parametrize("solver", ["auto_tsit5_rosenbrock23", "trbdf2"])
+def test_case2_per_lane_solvers_on_kernel_path(cuda_device, solver):
+    """Per-lane case2 in f64 at a reduced size under AutoSwitch (kernel 1
+    in every stage of both branches, kernel 2 once a step) and TRBDF2
+    (kernel 1 in every Newton iteration, J by forward mode of the plain
+    twin, so kernel 2 never): the epoch agrees with the plain path at rtol
+    1e-9."""
+    from crnn_tpu_torch.cases import case2
+
+    kw = dict(n_exp_train=6, n_exp_test=2, datasize=20, batch_major=False,
+              dtype="float64", solver=solver, max_steps=48)
+    setup = case2.build(case2.Case2Config(**kw))
+    plain = case2.build(case2.Case2Config(rhs_plain=True, **kw),
+                        dataset=setup.dataset)
+    perm = torch.randperm(6, generator=torch.Generator().manual_seed(0))
+    tk.arrhenius_rhs_batched.launches = 0
+    tk.arrhenius_rhs_jac_batched.launches = 0
+    state, m = setup.trainer.epoch(setup.trainer.init(setup.init_params), perm)
+    torch.cuda.synchronize()
+    assert tk.arrhenius_rhs_batched.launches > 0
+    assert (tk.arrhenius_rhs_jac_batched.launches > 0) == (solver != "trbdf2")
+    sp, mp = plain.trainer.epoch(plain.trainer.init(plain.init_params), perm)
+    torch.testing.assert_close(m.loss_exp, mp.loss_exp, rtol=1e-9, atol=0)
+    torch.testing.assert_close(state.params, sp.params, rtol=1e-9,
+                               atol=1e-9 * float(sp.params.abs().max()))
+
+
+def test_robertson_adjoint_mask_and_lm_on_card(cuda_device):
+    """robertson (f64, reduced size): the adjoint epoch on the kernel path
+    launches kernels 4 and 5 in its forward solves and agrees with the
+    plain path at rtol 1e-9; a w_out_mask keeps its pruned entries at
+    exactly 0; 2 LM iterations give the CPU's cost history within 1e-9."""
+    from crnn_tpu_torch.cases import robertson
+
+    kw = dict(n_exp_train=4, n_exp_val=2, datasize=16, batchsize=12)
+    setup = robertson.build(robertson.RobertsonConfig(grad_path="adjoint",
+                                                      **kw))
+    ds = setup.dataset
+    plain = robertson.build(robertson.RobertsonConfig(
+        grad_path="adjoint", rhs_plain=True, **kw), dataset=ds)
+    perm = torch.arange(4, device=cuda_device)
+    tk.crnn_rhs_batched.launches = tk.crnn_rhs_jac_batched.launches = 0
+    loss, g = setup.trainer.value_and_grad(setup.init_params, perm)
+    torch.cuda.synchronize()
+    assert min(tk.crnn_rhs_batched.launches,
+               tk.crnn_rhs_jac_batched.launches) > 0
+    loss_p, g_p = plain.trainer.value_and_grad(plain.init_params, perm)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-9, atol=0)
+    torch.testing.assert_close(g, g_p, rtol=1e-9,
+                               atol=1e-9 * float(g_p.abs().max()))
+
+    mask = tuple(tuple(0.0 if (i + j) % 4 == 0 else 1.0 for j in range(6))
+                 for i in range(3))
+    masked = robertson.build(robertson.RobertsonConfig(w_out_mask=mask, **kw),
+                             dataset=ds)
+    state, _ = masked.trainer.epoch(masked.trainer.init(masked.init_params))
+    keep = torch.tensor(mask, dtype=torch.float64, device=cuda_device)
+    assert bool((masked.weights_fn(state.params).w_out[keep == 0] == 0).all())
+
+    ds_cpu = ds._replace(**{f: getattr(ds, f).cpu() for f in ds._fields})
+    on_cpu = robertson.build(robertson.RobertsonConfig(device="cpu", **kw),
+                             dataset=ds_cpu)
+    _, card = robertson.run_lm_finish(setup, setup.init_params, max_iters=2)
+    _, cpu = robertson.run_lm_finish(on_cpu, on_cpu.init_params, max_iters=2)
+    assert card["history"].shape == cpu["history"].shape
+    np.testing.assert_allclose(card["history"], cpu["history"], rtol=1e-9)

@@ -14,7 +14,7 @@ import torch
 from crnn_tpu_torch.cases import base, case1, case2, robertson
 from crnn_tpu_torch.infra.checkpoint import load_checkpoint, save_checkpoint
 from crnn_tpu_torch.infra.metrics import MetricsLogger
-from crnn_tpu_torch.ode import Rosenbrock23, Tsit5, get_solver
+from crnn_tpu_torch.ode import ESDIRK, Rosenbrock23, Tsit5, get_solver
 from crnn_tpu_torch.train.loop import Trainer
 from crnn_tpu_torch.train.optimizers import adamw_like
 
@@ -271,10 +271,11 @@ def test_cli_sequential_and_restart_on_cpu(tmp_path, monkeypatch, name):
 def test_get_solver_registry():
     assert isinstance(get_solver("tsit5"), Tsit5)
     assert isinstance(get_solver("rosenbrock23"), Rosenbrock23)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        get_solver("trbdf2")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        case2.build(case2.Case2Config(**SMALL_CASE2,
-                                      solver="auto_tsit5_rosenbrock23"))
+    assert isinstance(get_solver("trbdf2"), ESDIRK)
+    # case2 builds its AutoSwitch around the closed-form Rosenbrock23, as
+    # crnn_tpu/cases/case2.py:123-124 does
+    setup = case2.build(case2.Case2Config(**SMALL_CASE2,
+                                          solver="auto_tsit5_rosenbrock23"))
+    assert setup.trainer.loss_i_exp is not None
     with pytest.raises(ValueError, match="unknown solver"):
         get_solver("euler")
