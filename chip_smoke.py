@@ -72,7 +72,10 @@ Phases, each printed with the seconds it took:
    and eager times against the plain versions' and the launch floor; then
    kernel 4 at the 100 lanes of case3 (ns=9, nr=8) and of the GRN (ns=9,
    nr=15), f32 and f64, ub = 100 and inf, under the same gate, with its
-   device ms, the launch floor and its bound at B=100 in f32;
+   device ms, the launch floor and its bound at B=100 in f32; and at the
+   hybrid cases' CRNN cores, yeast's (ns=12, nr=12; ub 100) and the
+   QSSA's (3, 3; ub 10), at B=20 and 30, f32 and f64, ub and inf, with its
+   device ms and bound at B=20 in f32;
 8. case1: 3 guarded epochs of Case1Config() (f32, Tsit5) through run_case,
    counters set to 0 just before and read just after (kernel 4 launches;
    finite, non-increasing training loss); the kernel path against the
@@ -92,12 +95,13 @@ Phases, each printed with the seconds it took:
    through the plain ops, as the JAX package takes its reference ops
    there; the evaluation pass on the kernels) as the CLI runs it, with
    kernel 1 counted (> 0), and one with the per-lane evaluation, kernels 1
-   and 2 counted (each > 0), both finite; one sequential case1 epoch
-   (kernel 4 counted, > 0); then the case2 CLI for 2 epochs and 2 more
-   with ``--restart --epochs-per-dispatch 2``: metrics.jsonl runs epochs
-   1-4, the checkpoint, best and p_opt.npy files exist, and every epoch's
-   losses and grad norm and the final checkpoint (the generator's state
-   among it) equal those of a 4-epoch uninterrupted run bit for bit;
+   and 2 counted (each > 0), both finite; one sequential case1 epoch at 5
+   training experiments (kernel 4 counted, > 0); then the case2 CLI for 2
+   epochs and 2 more with ``--restart --epochs-per-dispatch 2``:
+   metrics.jsonl runs epochs 1-4, the checkpoint, best and p_opt.npy
+   files exist, and every epoch's losses and grad norm and the final
+   checkpoint (the generator's state among it) equal those of a 4-epoch
+   uninterrupted run bit for bit;
 11. isothermal family: (a) case3 (``Case3Config()``: 100 experiments,
    100 save points, ns=9, nr=8, f32, Tsit5, max_steps 192) and (b) the GRN
    (``grn_config()``: nr=15, 40 save points, horizons 2-40): 2 guarded
@@ -113,28 +117,52 @@ Phases, each printed with the seconds it took:
    the per-lane Rosenbrock23 on a t-dependent RHS (``ramp_rhs``, df/dt by
    forward mode in t) in f64 on the card against the same solve on the
    CPU: n_steps exact, ys within 1e-9 of each component's largest value;
-12. ODE suite: (a) TRBDF2, Kvaerno3, ``AutoSwitch(Tsit5(), TRBDF2())``
-   and ``AutoSwitch(Tsit5(), Rosenbrock23())`` on Robertson in f64, three
-   lanes of different stiffness in one batch, on the card against the CPU:
-   n_steps and every lane's final ``is_stiff`` exact, ys within 1e-9 of
-   each component's largest value; (b) per-lane case2
+12. ODE suite: (a) TRBDF2, Kvaerno3, ``AutoSwitch(Tsit5(), TRBDF2())`` and
+   ``AutoSwitch(Tsit5(), Rosenbrock23())`` on Robertson in f64, three lanes
+   of different stiffness in one batch, on the card against the CPU: n_steps
+   and every lane's final ``is_stiff`` exact, ys within 1e-9 of each
+   component's largest value; (b) per-lane case2
    (``Case2Config(batch_major=False)``) under
-   ``solver='auto_tsit5_rosenbrock23'`` and ``'trbdf2'``: one f32 epoch
-   each through run_case with kernels 1 and 2 counted and timed, and an f64
-   epoch on the kernel path against the plain path at rtol 1e-9 or 3x the
-   plain path's own move under one ulp of the params, whichever is larger
-   (AutoSwitch's f64 gradient moves by ~4e-8 and its eval losses by ~2e-6;
-   kernel launches counted); (c) robertson with ``grad_path='adjoint'``: an f64
-   epoch on the kernel path (kernels 4 and 5 counted) against the plain
-   path at rtol 1e-9, its seconds beside a ``'rev_scan'`` epoch's; (d)
-   ``run_lm_finish`` for 20 iterations from phase 9's trained params, on
-   the card and on the CPU: cost histories within 1e-9 or 3x the CPU's own
-   move under one ulp of the params (CG on the ill-conditioned damped
-   normal equations carries rounding into the steps), not increasing, at
-   least one step taken (3 iterations take none: lambda starts at 1e-3
-   and grows 3x a rejection); (e) a
-   robertson epoch with a ``w_out_mask``: the pruned w_out entries exactly
-   0.
+   ``solver='auto_tsit5_rosenbrock23'`` and ``'trbdf2'``: one f32 epoch each
+   through run_case with kernels 1 and 2 counted and timed, and an f64 epoch
+   at a reduced depth of 64 steps a scan on the kernel path against the
+   plain path at rtol 1e-9 or 3x the plain path's own move under one ulp of
+   the params, whichever is larger (AutoSwitch's f64 gradient moves by ~4e-8
+   and its eval losses by ~2e-6; kernel launches counted); (c) robertson
+   with ``grad_path='adjoint'``: an f64 epoch on the kernel path (kernels 4
+   and 5 counted) against the plain path at rtol 1e-9, its seconds beside a
+   ``'rev_scan'`` epoch's; (d) ``run_lm_finish`` for 20 iterations from
+   phase 9's trained params, on the card and on the CPU (in the background):
+   cost histories within 1e-9 or 3x the CPU's own move under one ulp of the
+   params (CG on the ill-conditioned damped normal equations carries
+   rounding into the steps), not increasing, at least one step taken (3
+   iterations take none: lambda starts at 1e-3 and grows 3x a rejection);
+   (e) a robertson epoch with a ``w_out_mask``: the pruned w_out entries
+   exactly 0;
+13. hybrid cases: (a) yeast at ``YeastConfig()`` (30 experiments, 300 save
+   points, ns=7 of 12, nr=12, f32, TRBDF2, max_steps 384; data generated
+   on the card): 1 guarded epoch through run_case with kernel 4 counted
+   (> 0); the kernel path against the plain path on the f32 losses at the
+   trained params at rtol 1e-4 or 3x the plain path's own one-ulp move
+   (``f32_losses_vs_plain``), and over a whole f64 epoch at rtol 1e-9 at
+   a reduced depth (4 + 2 experiments, every 5th save point, max_steps
+   96, the widths kept); (b) the QSSA at ``QSSAConfig()`` (30 experiments,
+   40 save points, f64, Rosenbrock23): 2 guarded epochs with kernel 4
+   counted, and a whole f64 epoch kernel against plain at rtol 1e-9
+   (max_steps 96);
+14. single-fit cases, no kernel on their path (every count 0), on the card
+   in a process of their own beside phase 13 (both host-bound, the card
+   mostly idle; their CPU references run in the background from the
+   start): (a) HyChem
+   at ``HyChemConfig()`` (surrogate trajectory, nr=10, 40 save points,
+   f64), 2 epochs through run_case on the card and on the CPU: losses and
+   grad norms at 1e-9; (b) ``run_cathode`` for 2 epochs on
+   ``synthetic_dsc`` from a YAML config the phase writes, on the card and
+   on the CPU: the results dir (metrics, checkpoint, ``p_opt.npy``, the
+   snapshot with the best losses written back), losses and grad norms at
+   1e-9 or 3x the CPU's one-ulp move; (c) cathode's gradient on one short
+   curve by reverse mode through the early-exit driver against
+   ``torch.func.jacfwd`` at 1e-10, with the seconds of each.
 
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
@@ -156,6 +184,7 @@ import contextlib
 import functools
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -495,7 +524,7 @@ def run_slice(device: str, gen: torch.Generator):
     p0 = setup.init_params
     perm = torch.randperm(cfg.n_exp_train, generator=gen).to(device)
     plain = build(Case2Config(device=device, rhs_plain=True), dataset=ds)
-    f32 = [forward_losses(s, p0, perm, cfg) for s in (setup, plain)]
+    f32 = [forward_losses(s, p0, perm) for s in (setup, plain)]
     compare_epoch("f32 train loss", f32[0][0], f32[1][0])
     compare_epoch("f32 eval losses", f32[0][1], f32[1][1])
     _, g_a = plain.trainer.value_and_grad(p0, perm)
@@ -527,30 +556,36 @@ def run_slice(device: str, gen: torch.Generator):
     return row, setup, state.params
 
 
-def forward_losses(setup, params, perm, cfg):
+def forward_losses(setup, params, perm):
     """(mean training loss through the scan, eval losses through the
     early-exit solve) at ``params``, without gradients."""
     dev = params.device
+    trainer = setup.trainer
     with torch.no_grad():
-        train = setup.trainer.loss_batch(
-            params, perm, torch.ones((perm.shape[0], cfg.datasize),
+        train = trainer.loss_batch(
+            params, perm, torch.ones((perm.shape[0], trainer.n_save),
                                      dtype=params.dtype, device=dev)).mean()
-        evals = setup.trainer.loss_batch_eval(
-            params, torch.arange(cfg.n_exp, device=dev),
-            torch.ones((cfg.n_exp, cfg.datasize), dtype=params.dtype,
+        evals = trainer.loss_batch_eval(
+            params, torch.arange(trainer.n_exp, device=dev),
+            torch.ones((trainer.n_exp, trainer.n_save), dtype=params.dtype,
                        device=dev))
     return train, evals
+
+
+def within(a, b, rtol) -> bool:
+    """Finite, and each entry of ``a`` within ``rtol`` of ``b``'s plus
+    ``rtol`` of ``b``'s largest entry (a gradient component can be ~0)."""
+    return bool(torch.isfinite(a).all()) and bool(
+        ((a - b).abs() <= rtol * (b.abs() + b.abs().max())).all())
 
 
 def compare_epoch(name, a, b, what="kernel", against="plain",
                   rtol=_EPOCH_RTOL):
     """The ``what`` path's ``a`` against the ``against`` path's ``b``
-    (default: kernel path against plain path): ``rtol`` (1e-4) of
-    each entry, plus ``rtol`` of the largest entry for entries near 0 (a
-    gradient component can be ~0); fails the run if they disagree."""
-    tol = rtol * (b.abs() + b.abs().max())
+    (default: kernel path against plain path) ``within`` ``rtol`` (1e-4);
+    fails the run if they disagree."""
     rel = float(((a - b).abs() / b.abs().max()).max())
-    ok = bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= tol).all())
+    ok = within(a, b, rtol)
     print(f"  {what} vs {against} {name}: max rel err {rel:.3e} ok={ok}")
     if not ok:
         fail(f"{what} path {name} disagrees with the {against} path")
@@ -1065,7 +1100,7 @@ def run_dense_slice(ds, gen) -> dict:
     plain = build(Case2Config(jac_mode="dense", rhs_plain=True), dataset=ds)
     for name, params in (("initial", setup.init_params),
                          ("trained", state.params)):
-        got, want = (forward_losses(s, params, perm, cfg)
+        got, want = (forward_losses(s, params, perm)
                      for s in (setup, plain))
         compare_epoch(f"dense f32 train loss ({name} params)", got[0], want[0])
         compare_epoch(f"dense f32 eval losses ({name} params)", got[1],
@@ -1438,6 +1473,26 @@ def train_case(module, cfg, n_epoch, counters, launch=True):
     return setup, state, hist, launches
 
 
+def epoch_with_grad(trainer, params, perm, masks):
+    """One batch-mode epoch from ``params`` -> (loss, grad, state,
+    metrics): the training loss and gradient are the epoch's own, taken
+    from its one call to ``value_and_grad`` (one gradient pass, not two)."""
+    seen = []
+    vag = trainer.value_and_grad
+
+    def capture(*args):
+        seen.append(vag(*args))
+        return seen[-1]
+
+    trainer.value_and_grad = capture
+    try:
+        state, m = trainer.epoch(trainer.init(params), perm, masks)
+    finally:
+        del trainer.value_and_grad
+    ((loss, g),) = seen
+    return loss, g, state, m
+
+
 def compare_f64_epochs(module, cfg_cls, dataset, params, perm, masks, label,
                        rtol=1e-9, counters=(), **kw):
     """A whole f64 epoch on the kernel path against the plain path from the
@@ -1452,12 +1507,11 @@ def compare_f64_epochs(module, cfg_cls, dataset, params, perm, masks, label,
     for plain in (False, True):
         s = module.build(cfg_cls(dtype="float64", rhs_plain=plain, **kw),
                          dataset=dataset)
-        loss, g = s.trainer.value_and_grad(params, perm, masks)
         torch.cuda.synchronize()
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
-        state, m = s.trainer.epoch(s.trainer.init(params), perm, masks)
+        loss, g, state, m = epoch_with_grad(s.trainer, params, perm, masks)
         torch.cuda.synchronize()
         results.append((loss, g, m, state.params, time.perf_counter() - t0))
         if not plain:
@@ -1475,8 +1529,7 @@ def compare_f64_epochs(module, cfg_cls, dataset, params, perm, masks, label,
                        ("params", pk, pp)):
         tol = rtol[name] if isinstance(rtol, dict) else rtol
         rel = float(((a - b).abs() / b.abs().max()).max())
-        ok = bool(torch.isfinite(a).all()) and bool(
-            ((a - b).abs() <= tol * (b.abs() + b.abs().max())).all())
+        ok = within(a, b, tol)
         print(f"  kernel vs plain {label} f64 {name}: max rel err {rel:.3e} "
               f"ok={ok}")
         if not ok:
@@ -1503,7 +1556,7 @@ def run_case1(gen) -> dict:
     plain = case1.build(case1.Case1Config(rhs_plain=True), dataset=ds)
     p0 = setup.init_params
     perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
-    f32 = [forward_losses(s, p0, perm, cfg) for s in (setup, plain)]
+    f32 = [forward_losses(s, p0, perm) for s in (setup, plain)]
     compare_epoch("case1 f32 train loss", f32[0][0], f32[1][0])
     compare_epoch("case1 f32 eval losses", f32[0][1], f32[1][1])
     ys = []
@@ -1568,10 +1621,11 @@ def run_runner(gen) -> dict:
     through run_case with kernels 1 and 2 counted, and an f64 epoch on the
     kernel path against the plain path at rtol 1e-9; (b) sequential case2
     (forward mode): one epoch as the CLI runs it and one with the per-lane
-    evaluation, kernels counted; (c) sequential case1: one epoch with
-    kernel 4 counted; (d) the case2 CLI for 2 epochs and then 2 more with
-    --restart in one 2-epoch chunk, against 4 epochs uninterrupted, bit for
-    bit. Returns the launch counts and epoch seconds by kernel row."""
+    evaluation, kernels counted; (c) sequential case1: one epoch at 5
+    training experiments with kernel 4 counted; (d) the case2 CLI for 2
+    epochs and then 2 more with --restart in one 2-epoch chunk, against 4
+    epochs uninterrupted, bit for bit. Returns the launch counts and epoch
+    seconds by kernel row."""
     from crnn_tpu_torch.cases import case1, case2
     from crnn_tpu_torch.ops.crnn_kernels import (arrhenius_rhs_batched,
                                                  arrhenius_rhs_jac_batched,
@@ -1637,9 +1691,11 @@ def run_runner(gen) -> dict:
             out["arrhenius_rhs_jac"].update({f"{key}_launches": n_jac,
                                              f"{key}_epoch_s": seq_s})
 
-    # (c) sequential case1: reverse mode, one lane per update
+    # (c) sequential case1: reverse mode, one lane per update, at a reduced
+    # depth of 5 training experiments (5 updates; 20 took ~43 s on the card)
     _, _, hist, (n_iso,) = train_case(
-        case1, case1.Case1Config(mode="sequential"), 1, (crnn_rhs_batched,))
+        case1, case1.Case1Config(mode="sequential", n_exp_train=5), 1,
+        (crnn_rhs_batched,))
     out["crnn_rhs"].update(sequential_case1_launches=n_iso,
                            sequential_case1_epoch_s=hist["epoch_s"])
 
@@ -1726,33 +1782,42 @@ def check_t_dependent_rb23():
              "CPU's")
 
 
-def f32_losses_vs_plain(label, setup, plain, params, perm, cfg):
+def f32_losses_vs_plain(label, setup, plain, params, perm):
     """The f32 training loss (mean over ``perm``, scan driver) and eval
     losses (per experiment, early-exit driver) of the kernel path against
     the plain path at ``params``, at rtol 1e-4 or, where the plain path
     itself is worse conditioned, at 3x its conditioning witness: the
     largest move of the same losses on the plain path when every param
     moves by one ulp (all up, all down, and two draws of a random sign
-    each). case3's log-space loss needs that: where a predicted species
-    decays to lb (1e-5), f32's absolute rounding of the O(1) states
-    becomes a large difference of logs, so one ulp of the params moves
-    one experiment's loss by ~3e-3 of the largest (printed below). The
-    kernel is held per experiment in f64 at rtol 1e-9
+    each), taken only where the paths differ by more than 1e-4 (the gate is
+    the larger of the two). case3's log-space loss needs that: where a
+    predicted species decays to lb (1e-5), f32's absolute rounding of the
+    O(1) states becomes a large difference of logs, so one ulp of the
+    params moves one experiment's loss by ~3e-3 of the largest (printed
+    below). The kernel is held per experiment in f64 at rtol 1e-9
     (``compare_f64_epochs``)."""
-    kernel = forward_losses(setup, params, perm, cfg)
-    ref = forward_losses(plain, params, perm, cfg)
-    signs = torch.randint(0, 2, (2, *params.shape),
-                          generator=torch.Generator().manual_seed(0))
-    dirs = [torch.full_like(params, math.inf), torch.full_like(
-        params, -math.inf), *((2.0 * signs - 1.0).to(params) * math.inf)]
-    moved = [forward_losses(plain, torch.nextafter(params, params + d), perm,
-                            cfg) for d in dirs]
+    kernel = forward_losses(setup, params, perm)
+    ref = forward_losses(plain, params, perm)
+    moved = None
     for i, what in enumerate(("train loss", "eval losses")):
-        witness = max(float(((m[i] - ref[i]).abs() / ref[i].abs().max())
-                            .max()) for m in moved)
-        rtol = max(_EPOCH_RTOL, 3.0 * witness)
-        print(f"  {label} f32 {what}: one ulp of the params moves the plain "
-              f"path by {witness:.3e} of its largest; gate rtol {rtol:.3e}")
+        rtol = _EPOCH_RTOL
+        if not within(kernel[i], ref[i], rtol):
+            if moved is None:
+                signs = torch.randint(
+                    0, 2, (2, *params.shape),
+                    generator=torch.Generator().manual_seed(0))
+                dirs = [torch.full_like(params, math.inf),
+                        torch.full_like(params, -math.inf),
+                        *((2.0 * signs - 1.0).to(params) * math.inf)]
+                moved = [forward_losses(
+                    plain, torch.nextafter(params, params + d), perm)
+                    for d in dirs]
+            witness = max(float(((m[i] - ref[i]).abs()
+                                 / ref[i].abs().max()).max()) for m in moved)
+            rtol = max(rtol, 3.0 * witness)
+            print(f"  {label} f32 {what}: one ulp of the params moves the "
+                  f"plain path by {witness:.3e} of its largest; gate rtol "
+                  f"{rtol:.3e}")
         compare_epoch(f"{label} f32 {what}", kernel[i], ref[i], rtol=rtol)
 
 
@@ -1791,7 +1856,7 @@ def run_isothermal_family(gen) -> dict:
         for label, params in (("initial", setup.init_params),
                               ("trained", state.params)):
             f32_losses_vs_plain(f"{name} ({label} params)", setup, plain,
-                                params, perm, cfg)
+                                params, perm)
         ys = []
         for plain_rhs in (False, True):
             with torch.no_grad():
@@ -1839,14 +1904,17 @@ def robertson_lanes_rhs(t, y, k):
     return torch.stack([-r1 + r3, r1 - r2 - r3, r2], dim=-1)
 
 
-def check_solvers_card_vs_cpu() -> dict:
-    """Phase 12(a): TRBDF2, Kvaerno3 and AutoSwitch to TRBDF2 and to
-    Rosenbrock23 on Robertson over [0, 1e5] in f64, three lanes of different
-    stiffness in one batch (k = (4e-2, 3e7, 1e4), (4e-2, 3e5, 1e3) and the
-    slow (4e-6, 3e-3, 1e-3), which stays explicit), on the card against the
-    same solve on the CPU: n_steps exact, the final is_stiff of every lane
-    exact (AutoSwitch), ys within 1e-9 of each component's largest value.
-    Returns the card's seconds per solver."""
+ROBERTSON_LANE_SOLVERS = ("trbdf2", "kvaerno3", "auto_tsit5_trbdf2",
+                          "auto_tsit5_rosenbrock23")
+
+
+def robertson_lanes_solve(name: str, dev: str) -> dict:
+    """Phase 12(a)'s solve under solver ``name`` on ``dev``: Robertson over
+    [0, 1e5] in f64, three lanes of different stiffness in one batch (k =
+    (4e-2, 3e7, 1e4), (4e-2, 3e5, 1e3) and the slow (4e-6, 3e-3, 1e-3),
+    which stays explicit), 10 save points, rtol 1e-6, atol 1e-10. Returns
+    its ys, n_steps, success, every lane's final ``is_stiff`` (AutoSwitch)
+    and seconds, as plain lists and numbers."""
     from crnn_tpu_torch.ode import (AutoSwitch, Kvaerno3, Rosenbrock23,
                                     TRBDF2, Tsit5)
     from crnn_tpu_torch.ode.base import autonomous
@@ -1864,40 +1932,51 @@ def check_solvers_card_vs_cpu() -> dict:
             return super().step(f, t, y, dt, args, state)
 
     f64 = torch.float64
-    rhs = autonomous(robertson_lanes_rhs)
     k = torch.tensor([[4e-2, 3e7, 1e4], [4e-2, 3e5, 1e3], [4e-6, 3e-3, 1e-3]],
                      dtype=f64)
     y0 = torch.tensor([[1.0, 0.0, 0.0]] * 3, dtype=f64)
     saveat = 10.0 ** torch.linspace(0.0, 5.0, 10, dtype=f64)
-    makers = {"trbdf2": TRBDF2, "kvaerno3": Kvaerno3,
+    solver = {"trbdf2": TRBDF2, "kvaerno3": Kvaerno3,
               "auto_tsit5_trbdf2": lambda: Recording(TRBDF2()),
-              "auto_tsit5_rosenbrock23": lambda: Recording(Rosenbrock23())}
+              "auto_tsit5_rosenbrock23": lambda: Recording(Rosenbrock23()),
+              }[name]()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    sol = odesolve(autonomous(robertson_lanes_rhs), solver, y0.to(dev), 0.0,
+                   1e5, saveat.to(dev), args=k.to(dev), rtol=1e-6,
+                   atol=1e-10, max_steps=16384, unroll="while")
+    sync()
+    return {"ys": sol.ys.cpu().tolist(), "n_steps": sol.n_steps.tolist(),
+            "success": bool(sol.success.all()),
+            "is_stiff": (solver.is_stiff[-1].cpu().tolist()
+                         if isinstance(solver, Recording) else None),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_solvers_card_vs_cpu(refs) -> dict:
+    """Phase 12(a): TRBDF2, Kvaerno3 and AutoSwitch to TRBDF2 and to
+    Rosenbrock23 on Robertson lanes (``robertson_lanes_solve``) on the card
+    against the same solve on the CPU (``refs()``, from ``cpu_references``):
+    n_steps exact, the final is_stiff of every lane exact (AutoSwitch), ys
+    within 1e-9 of each component's largest value. Returns the card's
+    seconds per solver."""
     seconds = {}
-    for name, make in makers.items():
-        sols, stiff, took = [], [], []
-        for dev in ("cuda", "cpu"):
-            solver = make()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sols.append(odesolve(rhs, solver, y0.to(dev), 0.0, 1e5,
-                                 saveat.to(dev), args=k.to(dev), rtol=1e-6,
-                                 atol=1e-10, max_steps=16384,
-                                 unroll="while"))
-            torch.cuda.synchronize()
-            took.append(time.perf_counter() - t0)
-            stiff.append(solver.is_stiff[-1].cpu().tolist()
-                         if isinstance(solver, Recording) else None)
-        card, cpu = sols
-        rel = rel_err_components(card.ys.cpu(), cpu.ys)
-        same_steps = torch.equal(card.n_steps.cpu(), cpu.n_steps)
-        print(f"  12(a) {name}: card {took[0]:.2f} s, CPU {took[1]:.2f} s; "
-              f"n_steps {cpu.n_steps.tolist()} equal {same_steps}; final "
-              f"is_stiff card {stiff[0]} CPU {stiff[1]}; ys max err "
+    cpu_runs = refs()["robertson_lanes"]
+    for name in ROBERTSON_LANE_SOLVERS:
+        card, cpu = robertson_lanes_solve(name, "cuda"), cpu_runs[name]
+        rel = rel_err_components(*(torch.tensor(r["ys"], dtype=torch.float64)
+                                   for r in (card, cpu)))
+        same_steps = card["n_steps"] == cpu["n_steps"]
+        print(f"  12(a) {name}: card {card['seconds']:.2f} s, CPU "
+              f"{cpu['seconds']:.2f} s (in the background); n_steps "
+              f"{cpu['n_steps']} equal {same_steps}; final is_stiff card "
+              f"{card['is_stiff']} CPU {cpu['is_stiff']}; ys max err "
               f"{rel:.3e} of each component's largest value (gate 1e-9)")
-        if not (same_steps and stiff[0] == stiff[1]
-                and bool(cpu.success.all()) and rel <= 1e-9):
+        if not (same_steps and card["is_stiff"] == cpu["is_stiff"]
+                and cpu["success"] and rel <= 1e-9):
             fail(f"12(a) {name}: the card's solve differs from the CPU's")
-        seconds[name] = took[0]
+        seconds[name] = card["seconds"]
     return seconds
 
 
@@ -1911,8 +1990,7 @@ def f64_epoch_witness(module, cfg_cls, dataset, params, perm, masks, **kw):
                      dataset=dataset)
 
     def run(p):
-        loss, g = s.trainer.value_and_grad(p, perm, masks)
-        state, m = s.trainer.epoch(s.trainer.init(p), perm, masks)
+        loss, g, state, m = epoch_with_grad(s.trainer, p, perm, masks)
         return {"loss": loss, "grad": g, "eval losses": m.loss_exp,
                 "params": state.params}
 
@@ -1938,8 +2016,8 @@ def run_case2_solvers(gen) -> dict:
     J by forward mode of the plain twin, so kernel 2 stays at 0 there), and
     an f64 epoch on the kernel path against the plain path at rtol 1e-9, or
     at 3x the plain path's own one-ulp move where that is larger
-    (``f64_epoch_witness``, AutoSwitch). Returns the counts and seconds by
-    kernel row."""
+    (``f64_epoch_witness``, AutoSwitch), both at a reduced depth of 64
+    steps a scan. Returns the counts and seconds by kernel row."""
     from crnn_tpu_torch.cases import case2
     from crnn_tpu_torch.ops.crnn_kernels import (arrhenius_rhs_batched,
                                                  arrhenius_rhs_jac_batched)
@@ -1973,7 +2051,7 @@ def run_case2_solvers(gen) -> dict:
         if solver != "trbdf2":
             witness = f64_epoch_witness(case2, case2.Case2Config, ds64, p64,
                                         perm, masks, batch_major=False,
-                                        solver=solver)
+                                        solver=solver, max_steps=64)
             rtol = {k: max(1e-9, 3.0 * w) for k, w in witness.items()}
             print(f"  12(b) {solver}: one ulp of the params moves the plain "
                   "path's f64 epoch by " + ", ".join(
@@ -1982,8 +2060,9 @@ def run_case2_solvers(gen) -> dict:
                       f"{k} {r:.3e}" for k, r in rtol.items()))
         tk, tp, (n_rhs64, *_) = compare_f64_epochs(
             case2, case2.Case2Config, ds64, p64, perm, masks,
-            f"case2 per-lane {solver}", rtol=rtol, counters=counters,
-            batch_major=False, solver=solver)
+            f"case2 per-lane {solver} (max_steps 64)", rtol=rtol,
+            counters=counters, batch_major=False, solver=solver,
+            max_steps=64)
         out["arrhenius_rhs"].update({
             f"per_lane_case2_{key}_launches": launches[0],
             f"per_lane_case2_{key}_epoch_s": hist["epoch_s"],
@@ -1998,7 +2077,45 @@ def run_case2_solvers(gen) -> dict:
     return out
 
 
-def run_robertson_suite(gen, setup, trained) -> dict:
+def lm_history(s, p):
+    """``run_lm_finish`` for 20 iterations: (cost history, seconds)."""
+    from crnn_tpu_torch.cases import robertson
+
+    t1 = time.perf_counter()
+    _, info = robertson.run_lm_finish(s, p, max_iters=20)
+    if p.device.type == "cuda":
+        torch.cuda.synchronize()
+    return info["history"], time.perf_counter() - t1
+
+
+def lm_cpu_references(out_path: str, in_path: str):
+    """12(d)'s CPU side, in a process of its own: the LM finish from phase
+    9's trained params on its dataset (``in_path``) on the CPU, and how far
+    one ulp of the params (all up, all down) moves that history, two
+    threads. Writes the history, its seconds and the witness to
+    ``out_path`` as JSON."""
+    import numpy as np
+
+    from crnn_tpu_torch.cases import robertson
+    from crnn_tpu_torch.data.generate import Dataset
+
+    torch.set_num_threads(2)
+    data = torch.load(in_path, weights_only=True)
+    with open(out_path + ".log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        s = robertson.build(robertson.RobertsonConfig(device="cpu"),
+                            dataset=Dataset(**data["dataset"]))
+        p = data["params"]
+        h_cpu, s_cpu = lm_history(s, p)
+        moved = [lm_history(s, torch.nextafter(
+            p, p + torch.full_like(p, d)))[0] for d in (math.inf, -math.inf)]
+    witness = max(float(np.max(np.abs(h - h_cpu) / np.abs(h_cpu)))
+                  if h.shape == h_cpu.shape else math.inf for h in moved)
+    Path(out_path).write_text(json.dumps({
+        "history": h_cpu.tolist(), "seconds": s_cpu, "witness": witness}))
+
+
+def run_robertson_suite(gen, setup, trained, lm_refs) -> dict:
     """Phase 12(c)-(e) on phase 9's robertson dataset (f64): (c)
     ``grad_path='adjoint'``: one epoch on the kernel path (kernels 4 and 5
     counted, > 0) against the plain path at rtol 1e-9 (loss, gradient, eval
@@ -2041,40 +2158,24 @@ def run_robertson_suite(gen, setup, trained) -> dict:
     # normal equations are ill-conditioned (rank <= 20 of 43 params), and
     # CG carries each run's rounding into its steps: one ulp of the params
     # moves the CPU's own history by ~3e-3 (measured on the CPU). Gate at
-    # 1e-9 or 3x that witness, measured here on the CPU
+    # 1e-9 or 3x that witness, measured on the CPU (``lm_cpu_references``)
     t0 = time.perf_counter()
-    ds_cpu = ds._replace(**{f: getattr(ds, f).cpu() for f in ds._fields})
-    on_cpu = robertson.build(robertson.RobertsonConfig(device="cpu"),
-                             dataset=ds_cpu)
     on_card = robertson.build(robertson.RobertsonConfig(), dataset=ds)
-
-    def lm_history(s, p):
-        t1 = time.perf_counter()
-        _, info = robertson.run_lm_finish(s, p, max_iters=20)
-        torch.cuda.synchronize()
-        return info["history"], time.perf_counter() - t1
-
-    def rel_diff(a, b):
-        if a.shape != b.shape:
-            return math.inf
-        return float(np.max(np.abs(a - b) / np.abs(b)))
-
     for c in counters:
         c.launches = 0
     h_card, s_card = lm_history(on_card, trained)
     l_card = [c.launches for c in counters]
-    p_cpu = trained.cpu()
-    h_cpu, s_cpu = lm_history(on_cpu, p_cpu)
-    witness = max(rel_diff(lm_history(on_cpu, torch.nextafter(
-        p_cpu, p_cpu + torch.full_like(p_cpu, d)))[0], h_cpu)
-        for d in (math.inf, -math.inf))
+    ref = lm_refs()
+    h_cpu, s_cpu, witness = (np.asarray(ref["history"]), ref["seconds"],
+                             ref["witness"])
     tol = max(1e-9, 3.0 * witness)
-    rel = rel_diff(h_card, h_cpu)
+    rel = (float(np.max(np.abs(h_card - h_cpu) / np.abs(h_cpu)))
+           if h_card.shape == h_cpu.shape else math.inf)
     print(f"  12(d) LM finish, 20 iterations: history card {h_card.tolist()} "
           f"(launches {l_card}: forward mode runs the plain ops), CPU "
           f"{h_cpu.tolist()}; one ulp of the params moves the CPU's by "
           f"{witness:.3e}; max rel diff {rel:.3e} (gate {tol:.3e}); card "
-          f"{s_card:.2f} s, CPU {s_cpu:.2f} s")
+          f"{s_card:.2f} s, CPU {s_cpu:.2f} s (in the background)")
     if not (rel <= tol and bool(np.all(np.diff(h_card) <= 0))
             and h_card.shape[0] >= 2):
         fail("12(d): the LM cost history differs from the CPU's, rose, or "
@@ -2113,6 +2214,353 @@ def run_robertson_suite(gen, setup, trained) -> dict:
                              "robertson_lm_20_iters_cpu_s": s_cpu}}
 
 
+def check_crnn_rhs_hybrid_shapes(gen) -> dict:
+    """Phase 7, continued: kernel 4 at the CRNN cores of the hybrid RHSs,
+    yeast's ``u_full`` (ns=12, nr=12; ub 100) and the QSSA's (3, 3; ub 10),
+    at the B of their training (20) and evaluation (30) solves, f32 and
+    f64, plain, edge and exp-cap inputs, that ub and inf, held as
+    ``crnn_inputs`` conditions them (lb 1e-5, the cases' own); then its
+    device and eager times at B=20 in f32 against the plain version's, the
+    launch floor and its bound. The draws come from ``gen``, a generator of
+    their own. Returns {shape: numbers}."""
+    from crnn_tpu_torch.ops.crnn_kernels import (crnn_rhs_batched,
+                                                 crnn_rhs_batched_reference)
+
+    tol = {torch.float32: 2e-6, torch.float64: 1e-12}
+    out = {}
+    for name, shape, ub_case in (("yeast", (12, 12), 100.0),
+                                 ("qssa", (3, 3), 10.0)):
+        for dtype in (torch.float32, torch.float64):
+            worst = 0.0
+            for batch in (20, 30):
+                for edges in (False, True, "exp-cap"):
+                    args, lb = crnn_inputs(batch, dtype, gen, shape, edges)
+                    for ub in (ub_case, math.inf):
+                        got = crnn_rhs_batched(*args, lb, ub)
+                        ref = crnn_rhs_batched_reference(*args, lb, ub)
+                        torch.cuda.synchronize()
+                        ok, err, rel = compare_components(got, ref,
+                                                          tol[dtype])
+                        if not ok:
+                            fail(f"crnn_rhs disagrees with its plain version:"
+                                 f" {name} {shape} B={batch} {dtype} "
+                                 f"edges={edges} ub={ub}: {err:.3e}")
+                        worst = max(worst, rel)
+                        if (batch == 20 and dtype == torch.float32
+                                and not edges and ub == ub_case):
+                            out[name] = {"max_abs_err": err}
+            print(f"  crnn_rhs {name} {shape} B=20, 30 {str(dtype)[6:]}: "
+                  f"plain, edges, exp cap; ub {ub_case:g} and inf: ok; "
+                  f"largest error over its component's largest value "
+                  f"{worst:.3e} (gate {tol[dtype]:.0e})")
+        (y, w_in, w_b, w_out), lb = crnn_inputs(20, torch.float32, gen, shape,
+                                                False)
+        bound, bound_by = crnn_bound_ms(20, *shape, torch.float32, False)
+        out[name].update(
+            ms=device_ms(lambda: crnn_rhs_batched(y, w_in, w_b, w_out, lb,
+                                                  ub_case)),
+            plain_ms=device_ms(lambda: crnn_rhs_batched_reference(
+                y, w_in, w_b, w_out, lb, ub_case)),
+            ms_eager=eager_ms(lambda: crnn_rhs_batched(y, w_in, w_b, w_out,
+                                                       lb, ub_case)),
+            floor_ms=floor_ms(y), bound_ms=bound, bound_by=bound_by,
+            timed_at=f"{name} {shape} B=20 f32")
+        print(f"  crnn_rhs {name} {shape} B=20 f32 ms/call: "
+              + ", ".join(f"{k}={out[name][k]:.5f}" for k in (
+                  "ms", "plain_ms", "ms_eager", "floor_ms"))
+              + f", bound={bound:.3e} ({bound_by})")
+    return out
+
+
+def run_hybrid(gen) -> dict:
+    """Phase 13: the hybrid-MLP cases on the card, the MLP in plain torch
+    and the CRNN core on kernel 4 in every f. (a) yeast at
+    ``YeastConfig()`` (30 experiments, 300 save points, ns=7 of ns_=12,
+    nr=12, f32, TRBDF2, max_steps 384), its data generated on the card: 1
+    guarded epoch through run_case with kernel 4 counted (> 0); the kernel
+    path against the plain path on the f32 losses at the trained params
+    (``f32_losses_vs_plain``: rtol 1e-4 or 3x the plain path's own one-ulp
+    move); a whole f64 epoch (loss, grad, eval losses, params) at rtol
+    1e-9 at a reduced depth, 4 + 2 experiments, every 5th save point (60)
+    and max_steps 96 (where the slowest solves stop short of t1: a check
+    of kernel against plain, not a fit), the widths kept. (b) the QSSA at ``QSSAConfig()``
+    (30 experiments, 40 save points, f64, Rosenbrock23): 2 guarded epochs
+    with kernel 4 counted, and a whole f64 epoch kernel against plain at
+    rtol 1e-9 with max_steps 96 (its solves take ~60). Returns kernel 4's
+    row entries."""
+    import dataclasses
+
+    from crnn_tpu_torch.cases import robertson_qssa, yeast
+    from crnn_tpu_torch.ops.crnn_kernels import crnn_rhs_batched
+    from crnn_tpu_torch.train.loss import prefix_mask
+
+    counters = (crnn_rhs_batched,)
+    row = {}
+    # (a) yeast
+    t0 = time.perf_counter()
+    cfg = yeast.YeastConfig()
+    setup, state, hist, (launches,) = train_case(yeast, cfg, 1, counters)
+    ds = setup.dataset
+    print(f"  yeast truth: success {int(ds.success.sum())}/{cfg.n_exp}, "
+          f"yscale {[round(v, 4) for v in ds.yscale.tolist()]}")
+    if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
+        fail("yeast: truth solve failed or produced non-finite data")
+    # the f32 losses at the shipped 384 steps: a shorter scan exhausts at
+    # the trained params, and one ulp of the params then moves the plain
+    # path's own losses by 0.26-0.85 of their largest (a 128-step trial)
+    plain = yeast.build(dataclasses.replace(cfg, rhs_plain=True), dataset=ds)
+    perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
+    f32_losses_vs_plain("yeast (trained params)", setup, plain, state.params,
+                        perm)
+    n_tr, n_val, every, max_steps = 4, 2, 5, 96
+    n = n_tr + n_val
+    ds64 = ds._replace(u0=ds.u0[:n].double(), ys=ds.ys[:n, ::every].double(),
+                       ys_clean=ds.ys_clean[:n, ::every].double(),
+                       ts=ds.ts[::every].double(), yscale=ds.yscale.double(),
+                       success=ds.success[:n])
+    n_save = ds64.ts.shape[0]
+    masks = prefix_mask(n_save, torch.randint(
+        min(cfg.batch_min, n_save), n_save + 1, (n_tr,), generator=gen),
+        torch.float64)
+    tk, tp, (n64,) = compare_f64_epochs(
+        yeast, yeast.YeastConfig, ds64, setup.init_params.double(),
+        torch.randperm(n_tr, generator=gen).cuda(), masks,
+        f"yeast ({n_tr}+{n_val} experiments, {n_save} save points, "
+        f"max_steps {max_steps})", counters=counters, n_exp_train=n_tr,
+        n_exp_val=n_val, ntotal=n_save, max_steps=max_steps)
+    row.update(yeast_launches=launches, yeast_launches_per_epoch=launches,
+               yeast_epoch_s=hist["epoch_s"],
+               yeast_f64_reduced_epoch_launches=n64,
+               yeast_f64_reduced_epoch_kernel_s=tk,
+               yeast_f64_reduced_epoch_plain_s=tp)
+    print(f"  13(a) yeast: {time.perf_counter() - t0:.2f} s")
+
+    # (b) the QSSA
+    t0 = time.perf_counter()
+    cfg = robertson_qssa.QSSAConfig()
+    setup, state, hist, (launches,) = train_case(robertson_qssa, cfg, 2,
+                                                 counters)
+    ds = setup.dataset
+    if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
+        fail("robertson_qssa: truth solve failed or produced non-finite data")
+    tk, tp, (n64,) = compare_f64_epochs(
+        robertson_qssa, lambda dtype, **kw: robertson_qssa.QSSAConfig(**kw),
+        ds, setup.init_params, torch.randperm(cfg.n_exp_train,
+                                              generator=gen).cuda(),
+        torch.ones((cfg.n_exp_train, cfg.datasize), dtype=torch.float64),
+        "robertson_qssa (max_steps 96)", counters=counters, max_steps=96)
+    row.update(qssa_launches=launches, qssa_launches_per_epoch=launches / 2,
+               qssa_epoch_s=hist["epoch_s"], qssa_f64_epoch_launches=n64,
+               qssa_f64_epoch_kernel_s=tk, qssa_f64_epoch_plain_s=tp)
+    print(f"  13(b) robertson_qssa: {time.perf_counter() - t0:.2f} s")
+    return row
+
+
+CATHODE_YAML = "expr_name: smoke\nn_epoch: 2\nn_plot: 1\n"
+_HIST = ("loss_train", "loss_val", "grad_norm")
+
+
+def cathode_run(device: str, tmp: Path) -> tuple:
+    """``run_cathode`` for 2 epochs on ``synthetic_dsc`` from a YAML config
+    written to ``tmp``, on ``device``: (seconds, metrics rows, best, the
+    results dir)."""
+    from crnn_tpu_torch.cases import cathode
+    from crnn_tpu_torch.infra.config import config_from_yaml
+
+    yaml_path = tmp / "config.yaml"
+    yaml_path.write_text(CATHODE_YAML)
+    cfg = config_from_yaml(cathode.CathodeConfig, str(yaml_path),
+                           device=device)
+    t0 = time.perf_counter()
+    _, best = cathode.run_cathode(cfg, out_dir=str(tmp / "out"),
+                                  config_yaml=str(yaml_path))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rdir = tmp / "out" / "cathode" / "smoke"
+    rows = [json.loads(x) for x in
+            (rdir / "metrics.jsonl").read_text().splitlines()]
+    return seconds, rows, best, rdir
+
+
+def cpu_references(out_path: str):
+    """The CPU references of phases 12(a) and 14, in a process of their own
+    started with the script, so that they run while the card runs the
+    phases before them: the four Robertson-lane solves
+    (``robertson_lanes_solve``), HyChem's 2 epochs through run_case and
+    cathode's ``run_cathode`` (``cathode_run``) on the CPU, two threads.
+    Writes their results and seconds to ``out_path`` as JSON; the
+    process's own output goes to a log beside it."""
+    from crnn_tpu_torch.cases import hychem
+    from crnn_tpu_torch.cases.base import run_case
+
+    torch.set_num_threads(2)
+    out = {"robertson_lanes": {name: robertson_lanes_solve(name, "cpu")
+                               for name in ROBERTSON_LANE_SOLVERS}}
+    with open(out_path + ".log", "w") as log, \
+            contextlib.redirect_stdout(log), \
+            tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, hist = run_case(hychem.build(hychem.HyChemConfig(device="cpu")),
+                           2, out_dir=tmp, log_every=0)
+        out["hychem"] = {"rows": [dict(zip(_HIST, r)) for r in zip(
+            *(hist[k] for k in _HIST))],
+            "seconds": time.perf_counter() - t0}
+        seconds, rows, _, _ = cathode_run("cpu", Path(tmp))
+        out["cathode"] = {"rows": rows, "seconds": seconds}
+    Path(out_path).write_text(json.dumps(out))
+
+
+def histories_card_vs_cpu(label, card, cpu, witness=None):
+    """The card's per-epoch (loss_train, loss_val, grad_norm) against the
+    CPU's at rtol 1e-9; where they differ by more, against 3x
+    ``witness()``, the CPU's own move under one ulp of the params, taken
+    only then (the gate is the larger of the two)."""
+    a = torch.tensor([[r[k] for k in _HIST] for r in card],
+                     dtype=torch.float64)
+    b = torch.tensor([[r[k] for k in _HIST] for r in cpu],
+                     dtype=torch.float64)
+    rel = float(((a - b).abs() / b.abs()).max()) if a.shape == b.shape \
+        else math.inf
+    gate = 1e-9
+    if rel > gate and witness is not None:
+        gate = max(gate, 3.0 * witness())
+    print(f"  {label} card vs CPU: {a.tolist()} against {b.tolist()}; max "
+          f"rel diff {rel:.3e} (gate {gate:.3e})")
+    if not rel <= gate:
+        fail(f"{label}: the card's losses differ from the CPU's")
+    return rel
+
+
+def cathode_witness() -> float:
+    """How far one ulp of cathode's initial params (all up, all down) moves
+    its 2-epoch (loss_train, loss_val, grad_norm) history on the CPU."""
+    from crnn_tpu_torch.cases import cathode
+
+    s = cathode.build(cathode.CathodeConfig(device="cpu"))
+    p0 = s.init_params
+
+    def history(p):
+        state = s.trainer.init(p, seed=0)
+        out = []
+        for _ in range(2):
+            state, m = s.trainer.epoch(state)
+            out.append([float(getattr(m, k)) for k in _HIST])
+        return torch.tensor(out, dtype=torch.float64)
+
+    base = history(p0)
+    return max(float(((history(torch.nextafter(
+        p0, p0 + torch.full_like(p0, d))) - base).abs() / base.abs()).max())
+        for d in (math.inf, -math.inf))
+
+
+def single_fit_child(out_path: str, refs_path: str):
+    """Phase 14 (``run_single_fit``) in a process of its own, on the card
+    beside phase 13, against the CPU references at ``refs_path``. Its
+    output goes to a log beside ``out_path``, its seconds to
+    ``out_path``; a failed check exits non-zero."""
+    with open(out_path + ".log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        out = run_single_fit(lambda: json.loads(Path(refs_path).read_text()))
+        print(f"[14 single-fit cases] done in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    Path(out_path).write_text(json.dumps(out))
+
+
+def run_single_fit(refs) -> dict:
+    """Phase 14: the single-fit cases, which have no kernel on their path
+    (every count 0). (a) HyChem at ``HyChemConfig()`` (the surrogate
+    trajectory, nr=10, 40 save points, f64, Rosenbrock23 with df/dt
+    through the interpolants): 2 guarded epochs through run_case on the
+    card. (b) ``run_cathode`` for 2 epochs on ``synthetic_dsc`` from a
+    YAML config the phase writes (f64, TRBDF2, sequential updates, the
+    gradient of the early-exit loss): ``metrics.jsonl``,
+    ``checkpoint.pt``, ``p_opt.npy`` and the snapshot with the best losses
+    written back. Both against the CPU's runs of the same (``refs()``, from
+    ``cpu_references``): losses and grad norms at 1e-9, or for cathode 3x
+    the CPU's one-ulp move where that is larger. (c) cathode's gradient on
+    one short curve by reverse mode through the early-exit driver (the
+    case's ``grad_mode='rev_while'``) against ``torch.func.jacfwd`` through
+    it (the JAX package's way) at 1e-10, with the seconds of each. Returns
+    the seconds."""
+    import numpy as np
+
+    from crnn_tpu_torch.cases import cathode, hychem
+    from crnn_tpu_torch.data.loaders import synthetic_dsc
+    from crnn_tpu_torch.infra.config import load_yaml
+    from crnn_tpu_torch.ops import crnn_kernels as ck
+
+    counters = (ck.crnn_rhs_batched, ck.crnn_rhs_jac_batched,
+                ck.arrhenius_rhs_batched, ck.arrhenius_rhs_jac_batched)
+    out = {}
+    # (a) HyChem
+    t0 = time.perf_counter()
+    _, _, hist, _ = train_case(hychem, hychem.HyChemConfig(), 2, counters,
+                               launch=False)
+    ref = refs()
+    rows = [dict(zip(_HIST, r)) for r in zip(*(hist[k] for k in _HIST))]
+    histories_card_vs_cpu("14(a) hychem", rows, ref["hychem"]["rows"])
+    out.update(hychem_epoch_s=hist["epoch_s"],
+               hychem_cpu_2_epochs_s=ref["hychem"]["seconds"])
+    print(f"  14(a) hychem: card epochs {hist['epoch_s']}, CPU 2 epochs "
+          f"{ref['hychem']['seconds']:.2f} s (in the background); "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # (b) cathode through its YAML lifecycle
+    t0 = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        seconds, rows, best, rdir = cathode_run("cuda", Path(tmp))
+        snap = load_yaml(str(rdir / "config.yaml"))
+        p_opt = np.load(rdir / "p_opt.npy")
+        if not ([m["epoch"] for m in rows] == [1, 2]
+                and (rdir / "checkpoint.pt").exists()
+                and snap.get("loss_train") == best["loss_train"]
+                and snap.get("loss_val") == best["loss_val"]
+                and p_opt.shape == (18,)
+                and all(math.isfinite(m["loss_train"]) for m in rows)):
+            fail(f"14(b) cathode: its results dir is incomplete: {rows}, "
+                 f"{snap}")
+    if max(c.launches for c in counters):
+        fail("14(b) cathode: a kernel launched on a path without kernels")
+    print(f"  14(b) cathode run_cathode 2 epochs: card {seconds:.2f} s, CPU "
+          f"{ref['cathode']['seconds']:.2f} s (in the background); "
+          f"snapshot loss_train {snap['loss_train']:.6e} loss_val "
+          f"{snap['loss_val']:.6e}")
+    histories_card_vs_cpu("14(b) cathode", rows, ref["cathode"]["rows"],
+                          cathode_witness)
+    out.update(cathode_run_2_epochs_card_s=seconds,
+               cathode_run_2_epochs_cpu_s=ref["cathode"]["seconds"])
+
+    # (c) the cathode gradient by reverse mode through the early-exit
+    # driver against torch.func.jacfwd through it (the JAX package's way),
+    # on one short curve: the same derivative, and what each costs
+    dsc = synthetic_dsc(heating_rates=(20.0, 15.0), t0_celsius=150.0,
+                        t1_celsius=250.0, dT=10.0)
+    grads = {}
+    for mode in ("rev_while", "fwd", "rev_while"):
+        s = cathode.build(cathode.CathodeConfig(val_index=1), dsc=dsc)
+        s.trainer.grad_mode = mode
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, grads[mode] = s.trainer.value_and_grad(
+            s.init_params, torch.tensor([0], device="cuda"))
+        torch.cuda.synchronize()
+        out[f"cathode_short_curve_grad_{mode}_s"] = time.perf_counter() - t1
+    g_r, g_f = grads["rev_while"], grads["fwd"]
+    rel = float((g_r - g_f).abs().max() / g_f.abs().max())
+    print(f"  14(c) cathode gradient on one short curve: rev_while "
+          f"{out['cathode_short_curve_grad_rev_while_s']:.3f} s, jacfwd "
+          f"{out['cathode_short_curve_grad_fwd_s']:.3f} s; they differ by "
+          f"{rel:.3e} of the largest entry (gate 1e-10)")
+    if not rel <= 1e-10:
+        fail("14(c): the reverse-mode cathode gradient differs from jacfwd's")
+    print(f"  14(b)-(c) cathode: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -2124,6 +2572,60 @@ def main() -> int:
     if Path(crnn_tpu_torch.__file__).resolve().parent.parent != HERE:
         fail(f"crnn_tpu_torch imported from {crnn_tpu_torch.__file__}, "
              "not from this checkout")
+    # the CPU references of phases 12(a) and 14 run in a process of their
+    # own while the card runs the phases before them
+    bg = Background()
+    bg.start("refs", cpu_references)
+    try:
+        return run_phases(bg)
+    finally:
+        bg.stop()
+
+
+class Background:
+    """CPU work in processes of their own (``spawn``), each writing one JSON
+    result, while the card runs other phases. ``result(name)`` waits for
+    one and fails the run if it failed; ``stop()`` ends every process."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.procs = {}
+
+    def path(self, name: str) -> str:
+        return str(Path(self.tmp.name) / name)
+
+    def start(self, name: str, target, *args):
+        """``target(out_path, *args)`` in a new process."""
+        proc = multiprocessing.get_context("spawn").Process(
+            target=target, args=(self.path(name + ".json"), *args),
+            daemon=True)
+        proc.start()
+        self.procs[name] = proc
+
+    def result(self, name: str):
+        proc = self.procs[name]
+        proc.join()
+        out = Path(self.path(name + ".json"))
+        if proc.exitcode != 0:
+            log = Path(str(out) + ".log")
+            tail = log.read_text()[-2000:] if log.exists() else ""
+            fail(f"background {name} failed (exit {proc.exitcode}): {tail}")
+        return json.loads(out.read_text())
+
+    def stop(self):
+        for proc in self.procs.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        self.tmp.cleanup()
+
+
+def run_phases(bg: Background) -> int:
+    """Phases 1-14 and the closing lines; ``bg`` holds the CPU work that
+    runs beside them (``cpu_references``, ``lm_cpu_references``)."""
+    def refs():
+        return bg.result("refs")
+
     from crnn_tpu_torch.ops import _build
     from crnn_tpu_torch.ops.crnn_kernels import (
         arrhenius_rhs_batched, arrhenius_rhs_batched_reference)
@@ -2243,12 +2745,22 @@ def main() -> int:
         for shape, times in check_crnn_rhs_family_shapes(
                 torch.Generator().manual_seed(11)).items():
             iso_row[f"{shape}_shape"] = times
+        for shape, times in check_crnn_rhs_hybrid_shapes(
+                torch.Generator().manual_seed(13)).items():
+            iso_row[f"{shape}_shape"] = times
 
     with phase("8 case1"):
         iso_row.update(run_case1(gen))
 
     with phase("9 robertson"):
         rob, rob_setup, rob_trained = run_robertson(gen)
+        # 12(d)'s CPU side from phase 9's data and trained params, in the
+        # background while the card runs phases 10-12(c)
+        lm_in = bg.path("lm_inputs.pt")
+        ds = rob_setup.dataset
+        torch.save({"dataset": {f: getattr(ds, f).cpu() for f in ds._fields},
+                    "params": rob_trained.cpu()}, lm_in)
+        bg.start("lm", lm_cpu_references, lm_in)
         iso_row["robertson_launches"] = rob.pop("rhs_launches")
         iso_jac_row.update(rob)
 
@@ -2263,15 +2775,28 @@ def main() -> int:
 
     with phase("12 ODE suite"):
         t0 = time.perf_counter()
-        solver_s = check_solvers_card_vs_cpu()
+        solver_s = check_solvers_card_vs_cpu(refs)
         print(f"  12(a): {time.perf_counter() - t0:.2f} s")
         case2_rows = run_case2_solvers(gen)
         kernel_row.update(case2_rows["arrhenius_rhs"])
         jac_row.update(case2_rows["arrhenius_rhs_jac"])
-        rob_rows = run_robertson_suite(gen, rob_setup, rob_trained)
+        rob_rows = run_robertson_suite(gen, rob_setup, rob_trained,
+                                       lambda: bg.result("lm"))
         iso_row.update(rob_rows["crnn_rhs"])
         iso_jac_row.update(rob_rows["crnn_rhs_jac"])
         iso_row["ode_suite_card_s"] = solver_s
+
+    # phase 14 (no kernel, no kernel timing) runs on the card in a process
+    # of its own beside phase 13: both are host-bound, the card mostly
+    # idle. The new phases draw from a generator of their own, so the
+    # earlier phases see the draws they saw before them
+    with phase("13 hybrid cases, 14 single-fit cases beside it"):
+        refs()
+        bg.start("phase14", single_fit_child, bg.path("refs.json"))
+        iso_row.update(run_hybrid(torch.Generator().manual_seed(17)))
+        single_fit = bg.result("phase14")
+        print(Path(bg.path("phase14.json") + ".log").read_text(), end="")
+        print("single-fit seconds: " + json.dumps(single_fit))
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("library_ms: null for every kernel: no single PyTorch call computes "

@@ -9,7 +9,10 @@ Files in ``<out_dir>/<name>/``:
 - ``checkpoint.pt`` and ``best.pt``: the ``TrainState`` and the best-val
   carry (``infra/checkpoint.py``), written every ``n_plot`` epochs and at
   the end; ``restart=True`` resumes from both;
-- ``p_opt.npy``: the best-val params, the learned mechanism;
+- ``p_opt.npy``: the best-val params, the learned mechanism; a case whose
+  params are a tree in the JAX package (the hybrid cases' ``{"crnn",
+  "mlp"}``) writes ``p_opt.npz`` instead, its leaves in JAX's tree order
+  (``arr_0``, ``arr_1``, ...), as crnn_tpu/cases/base.py:51-57 does;
 - ``figs/``: the prediction of one experiment against its data and the loss
   curves, every ``n_plot`` epochs and at the end. Without matplotlib the
   figures are skipped, with one line saying so, and every other file is
@@ -31,6 +34,7 @@ from crnn_tpu_torch.infra.metrics import MetricsLogger
 from crnn_tpu_torch.infra.plotting import (display_weights, have_matplotlib,
                                            plot_experiment, plot_loss_curves)
 from crnn_tpu_torch.train.loop import BestState, Trainer, TrainState
+from crnn_tpu_torch.transforms.ravel import tree_leaves
 
 
 @dataclass
@@ -48,6 +52,9 @@ class CaseSetup:
     # losses on explicit data (index-free), for a data-parallel runner
     loss_on_data: Optional[Callable] = None
     extras: dict = field(default_factory=dict)
+    # flat params -> the params tree of the JAX package, for a case whose
+    # params are a tree there (transforms/ravel.py); None: a flat vector
+    unravel: Optional[Callable] = None
 
 
 def seed_generators(seed: int, n: int) -> list[torch.Generator]:
@@ -63,13 +70,19 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def _save_best(run_dir: str, name: str, best: BestState, quiet: bool = False):
-    """Write the best-val params to ``p_opt.npy`` (at every checkpoint, so a
-    killed long run keeps its best, and at the end)."""
+def _save_best(run_dir: str, name: str, best: BestState, quiet: bool = False,
+               unravel: Optional[Callable] = None):
+    """Write the best-val params to ``p_opt.npy``, or with ``unravel`` the
+    leaves of their tree to ``p_opt.npz`` in JAX's order (at every
+    checkpoint, so a killed long run keeps its best, and at the end)."""
     if not float(best.loss_val) < float("inf"):
         return
-    np.save(os.path.join(run_dir, "p_opt.npy"),
-            best.params.detach().cpu().numpy())
+    params = best.params.detach().cpu()
+    if unravel is None:
+        np.save(os.path.join(run_dir, "p_opt.npy"), params.numpy())
+    else:
+        np.savez(os.path.join(run_dir, "p_opt.npz"),
+                 *[x.numpy() for x in tree_leaves(unravel(params))])
     if not quiet:
         print(f"[{name}] best val {float(best.loss_val):.4e} "
               f"(train {float(best.loss_train):.4e}) -> p_opt", flush=True)
@@ -133,7 +146,8 @@ def run_case(setup: CaseSetup, n_epoch: int, out_dir: str = "runs",
             plot_loss_curves(history, os.path.join(fig_dir, "loss.png"))
         save_checkpoint(ckpt_path, state)
         save_checkpoint(best_path, best)
-        _save_best(run_dir, setup.name, best, quiet=True)
+        _save_best(run_dir, setup.name, best, quiet=True,
+                   unravel=setup.unravel)
 
     k = max(1, int(epochs_per_dispatch))
     step = trainer.guarded_epoch_fn()
@@ -174,7 +188,7 @@ def run_case(setup: CaseSetup, n_epoch: int, out_dir: str = "runs",
     if best.n_skipped:
         print(f"[{setup.name}] WARNING: {best.n_skipped} epochs produced "
               "non-finite loss/grad; their updates were discarded", flush=True)
-    _save_best(run_dir, setup.name, best)
+    _save_best(run_dir, setup.name, best, unravel=setup.unravel)
     history.update(best_val=best.loss_val, best_train=best.loss_train,
                    n_skipped=best.n_skipped, best_params=best.params)
     return state, history

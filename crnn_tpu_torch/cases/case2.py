@@ -54,7 +54,7 @@ from crnn_tpu_torch.models.crnn import make_crnn_arrhenius_rhs
 from crnn_tpu_torch.models.jacobian import make_crnn_arrhenius_jac
 from crnn_tpu_torch.ode import AutoSwitch, Rosenbrock23, Tsit5, get_solver
 from crnn_tpu_torch.ode.batch_solve import batch_odesolve_rb23
-from crnn_tpu_torch.ode.rosenbrock import lane_jacfwd
+from crnn_tpu_torch.ode.rosenbrock import give_jac, jac_by_forward_mode
 from crnn_tpu_torch.ode.solve import odesolve
 from crnn_tpu_torch.ops.crnn_kernels import (make_arrhenius_factor_op,
                                              make_arrhenius_ops)
@@ -168,16 +168,10 @@ def build(cfg: Case2Config = Case2Config(),
         elif cfg.solver == "auto_tsit5_rosenbrock23":
             solver = AutoSwitch(Tsit5(), Rosenbrock23(jac=jac))
         else:
-            solver = get_solver(cfg.solver)
             # a solver without a closed-form J takes jacfwd of the RHS in
-            # JAX: here forward mode of the plain twin, as the kernel ops
-            # have no forward-mode rule (the f evaluations stay on them)
-            implicit = getattr(solver, "stiff", solver)
-            if hasattr(implicit, "jac") and implicit.jac is None:
-                rhs_plain = make_crnn_arrhenius_rhs(cfg.lb, cfg.ub,
-                                                    plain=True)
-                implicit.jac = lambda t, y, w: lane_jacfwd(
-                    lambda yy: rhs_plain(t, yy, w), y)
+            # JAX: here forward mode of the plain twin
+            solver = give_jac(get_solver(cfg.solver), jac_by_forward_mode(
+                make_crnn_arrhenius_rhs(cfg.lb, cfg.ub, plain=True)))
 
         def predict_from_u0(p, u0_b, unroll):
             sol = odesolve(rhs, solver, u0_b, 0.0, t1, dataset.ts,

@@ -2,7 +2,11 @@
 
 Each function takes numpy arrays (``np.asarray`` of the JAX values) and
 returns the port's tensors on the chosen device, so that a test or a user
-can continue a JAX run in the port on the same numbers.
+can continue a JAX run in the port on the same numbers. A params tree of
+the JAX package (the hybrid cases' ``{"crnn", "mlp": [{"w", "b"}, ...]}``)
+and its optax moments become one flat tensor, raveled in
+``jax.flatten_util.ravel_pytree``'s order (``transforms/ravel.py``), which
+is the order of the port's cases.
 """
 
 from __future__ import annotations
@@ -13,21 +17,28 @@ import torch
 from crnn_tpu_torch import resolve_device
 from crnn_tpu_torch.data.generate import Dataset
 from crnn_tpu_torch.train.optimizers import AdamState
+from crnn_tpu_torch.transforms.ravel import tree_leaves
 
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
 
 
-def params_from_jax(p: np.ndarray, device="cuda") -> torch.Tensor:
-    """A flat parameter vector."""
-    return _tensor(p, device)
+def _flat(tree) -> np.ndarray:
+    """A params tree (or a flat vector) raveled in JAX's leaf order."""
+    return np.concatenate([np.asarray(x).reshape(-1)
+                           for x in tree_leaves(tree)])
 
 
-def opt_state_from_jax(mu: np.ndarray, nu: np.ndarray, count,
-                       device="cuda") -> AdamState:
-    """optax's ``ScaleByAdamState`` (mu, nu, count)."""
-    return AdamState(_tensor(mu, device), _tensor(nu, device),
+def params_from_jax(p, device="cuda") -> torch.Tensor:
+    """A flat parameter vector, or a params tree raveled in JAX's order."""
+    return _tensor(_flat(p), device)
+
+
+def opt_state_from_jax(mu, nu, count, device="cuda") -> AdamState:
+    """optax's ``ScaleByAdamState`` (mu, nu, count); trees of moments are
+    raveled as ``params_from_jax`` ravels the params."""
+    return AdamState(_tensor(_flat(mu), device), _tensor(_flat(nu), device),
                      int(np.asarray(count)))
 
 
@@ -51,8 +62,7 @@ def adam_state_from_optax(opt_state, device="cuda") -> AdamState:
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no (mu, nu, count) Adam state in the optax state")
-    return opt_state_from_jax(np.asarray(adam.mu), np.asarray(adam.nu),
-                              adam.count, device=device)
+    return opt_state_from_jax(adam.mu, adam.nu, adam.count, device=device)
 
 
 def dataset_from_jax(u0: np.ndarray, ys: np.ndarray, ys_clean: np.ndarray,

@@ -36,6 +36,22 @@ def max_min_scale(ys: torch.Tensor, lb: float) -> torch.Tensor:
     return per_exp.amax(dim=0) + lb
 
 
+def std_scale(ys: torch.Tensor, lb: float) -> torch.Tensor:
+    """Yeast: per-species standard deviation over time (ddof 0, as
+    ``jnp.std``), max over experiments, + lb (yeast_glycolysis.jl:96-101)."""
+    return ys.std(dim=1, correction=0).amax(dim=0) + lb
+
+
+def _scale(ys: torch.Tensor, mode: str, lb: float) -> torch.Tensor:
+    if mode == "max_min":
+        return max_min_scale(ys, lb)
+    if mode == "std":
+        return std_scale(ys, lb)
+    if mode == "none":
+        return torch.ones(ys.shape[-1], dtype=ys.dtype, device=ys.device)
+    raise ValueError(f"unknown scale_mode {mode!r}")
+
+
 def latin_hypercube(gen: torch.Generator, n: int, d: int,
                     dtype=torch.float32) -> torch.Tensor:
     """Integer Latin hypercube / n (the reference's ``randomLHC(n, d) ./ n``,
@@ -46,16 +62,17 @@ def latin_hypercube(gen: torch.Generator, n: int, d: int,
 
 
 def _noisy_dataset(gen, u0_list, ys_clean, success, saveat, noise, obs_dim,
-                   scale_lb) -> Dataset:
+                   scale_lb, scale_mode="max_min") -> Dataset:
     """Multiplicative Gaussian noise ``ys_clean * (1 + noise * eps)`` and
-    max-min scales. ``gen`` is a CPU generator, so the noise is the same on
+    the scales of ``scale_mode``: 'max_min', 'std' (yeast) or 'none'
+    (ones). ``gen`` is a CPU generator, so the noise is the same on
     every device."""
     if obs_dim is not None:
         ys_clean = ys_clean[..., :obs_dim]
     eps = torch.randn(ys_clean.shape, generator=gen, dtype=ys_clean.dtype)
     ys = ys_clean + eps.to(ys_clean.device) * ys_clean * noise
     return Dataset(u0=u0_list, ys=ys, ys_clean=ys_clean, ts=saveat,
-                   yscale=max_min_scale(ys, scale_lb), success=success)
+                   yscale=_scale(ys, scale_mode, scale_lb), success=success)
 
 
 def generate_dataset(
@@ -103,11 +120,13 @@ def generate_dataset_odesolve(
     noise: float,
     scale_lb: float = 0.0,
     max_steps: int = 16384,
+    scale_mode: str = "max_min",
 ) -> Dataset:
     """``generate_dataset`` of the JAX package: the truth of every
     experiment through the per-lane ``odesolve`` with ``solver``
-    (``unroll='while'``), then noise and max-min scales. ``k`` (nk,) is
-    shared or (n_exp, nk) per experiment."""
+    (``unroll='while'``), then noise and the scales of ``scale_mode``
+    ('max_min', 'std' or 'none'). ``k`` (nk,) is shared or (n_exp, nk) per
+    experiment."""
     if k.dim() == 1:
         k = k.expand(u0_list.shape[0], -1)
     with torch.no_grad():
@@ -115,4 +134,4 @@ def generate_dataset_odesolve(
                        rtol=rtol, atol=atol, max_steps=max_steps,
                        unroll="while")
     return _noisy_dataset(gen, u0_list, sol.ys, sol.success, saveat, noise,
-                          None, scale_lb)
+                          None, scale_lb, scale_mode)

@@ -1,5 +1,5 @@
 """Ground-truth mass-action systems, batched (port of crnn_tpu/data/truth.py:
-case1, case2, case3, robertson, case1 rev and the GRN).
+case1, case2, case3, robertson, case1 rev, the GRN and yeast).
 
 The JAX package writes each truth per lane and lets ``vmap`` batch it; here
 each is written for a batch ``y (B, ns)`` with per-lane rate constants
@@ -25,6 +25,11 @@ REVERSIBLE_K = (1.0,) * 8
 # gene regulatory network (gene-regulatory.jl:77-129).
 GRN_K = (1.8, 2.1, 1.3, 1.5, 2.2, 2.0, 2.0, 2.5, 3.2, 3.0, 2.3, 2.5, 6.0, 4.0,
          3.0)
+# yeast glycolysis rate constants and the per-species box of initial
+# conditions (yeast_glycolysis.jl:41-74).
+YEAST_K = (100.0, 6.0, 16.0, 100.0, 1.28, 12.0)
+YEAST_IC_LB = (0.15, 1.19, 0.04, 0.10, 0.08, 0.14, 0.05)
+YEAST_IC_UB = (1.60, 2.16, 0.20, 0.35, 0.30, 2.67, 0.10)
 # Biodiesel transesterification constants (case2/case2.jl:55-59).
 CASE2_LOGA = (18.60, 19.13, 7.93)
 CASE2_EA = (14.54, 14.42, 6.47)  # kcal/mol
@@ -143,3 +148,22 @@ def grn_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.stack([z, r[0] - r[2] - r[14], r[1] - r[3], z,
                         r[4] - r[6] - r[13], r[5] - r[7], z,
                         r[8] - r[10] - r[12], r[9] - r[11]], dim=1)
+
+
+@autonomous
+def yeast_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Yeast glycolysis, 7-species reduced model (yeast_glycolysis.jl:41-66),
+    the constants q, K1, A, N, J0 and phi inline: y (B, 7), k (B, 6) ->
+    (B, 7)."""
+    q, big_k1, big_a, big_n, j0, phi = 4.0, 0.52, 4.0, 1.0, 2.5, 0.1
+    r1 = k[:, 0] * y[:, 0] * y[:, 5] / (1.0 + (y[:, 5] / big_k1) ** q)
+    r2 = k[:, 1] * y[:, 1] * (big_n - y[:, 4])
+    r3 = k[:, 2] * y[:, 2] * (big_a - y[:, 5])
+    r4 = k[:, 3] * y[:, 3] * y[:, 4]
+    r5 = k[:, 4] * y[:, 5]
+    r6 = k[:, 5] * y[:, 1] * y[:, 4]
+    r7 = 13.0 * y[:, 6]
+    r8 = 13.0 * (y[:, 3] - y[:, 6])
+    return torch.stack([j0 - r1, 2.0 * r1 - r2 - r6, r2 - r3, r3 - r4 - r8,
+                        r2 - r4 - r6, -2.0 * r1 + 2.0 * r3 - r5,
+                        phi * r8 - r7], dim=1)

@@ -1,6 +1,8 @@
 """CRNN right-hand sides, lane-batched (port of crnn_tpu/models/crnn.py:
-make_crnn_rhs, make_crnn_scaled_rhs, make_crnn_arrhenius_rhs and
-make_crnn_reversible_rhs).
+make_crnn_rhs, make_crnn_scaled_rhs, make_crnn_arrhenius_rhs,
+make_crnn_reversible_rhs, the hybrid make_crnn_yeast_rhs and
+make_crnn_qssa_rhs, and make_cathode_rhs with its closed-form Jacobian and
+cathode_hrr).
 
     du = w_out @ exp(min(w_in^T @ log(clip(y, lb, ub)) + w_b, exp_cap))
 
@@ -11,9 +13,11 @@ Arrhenius kernel (``ops/csrc/arrhenius_rhs.cu``, y (B, ns+1) with T last):
 every call on a CUDA tensor is one kernel launch, with the backward by
 autograd of the plain version. The exponent cap of 32 keeps the rates of wild trial steps
 finite, so reverse-mode gradients are not poisoned by inf * 0. Every RHS
-here is independent of t and is declared so (``ode/base.py:autonomous``).
-The reversible RHS has no kernel in either package: it is plain torch on
-every device.
+here but the cathode's is independent of t and is declared so
+(``ode/base.py:autonomous``). The reversible and the cathode RHS have no
+kernel in either package: they are plain torch on every device. The hybrid
+RHSs run their MLP in plain torch and their CRNN core on the isothermal
+kernel, at ``u_full`` (B, ns_) with the hidden species appended.
 """
 
 from __future__ import annotations
@@ -92,3 +96,111 @@ def make_crnn_reversible_rhs(lb: float, order_clip: float = 2.5,
         return (fwd - bwd) @ w.w_out.T
 
     return rhs
+
+
+def make_crnn_yeast_rhs(lb: float, ub: float, ns: int,
+                        mlp_apply_fn: Callable, exp_cap: float = 32.0,
+                        plain: bool = False) -> Callable:
+    """Hybrid CRNN with hidden species (yeast_glycolysis.jl:138-142): an MLP
+    infers the hidden species from the ns observed ones, the CRNN core runs
+    on the concatenated ``u_full (B, ns_)``, and the learned influx ``w_J``
+    is added to the observed rows. ``args = (weights, mlp_params)``;
+    ``mlp_apply_fn(params, y (B, ns)) -> (B, ns_ - ns)``."""
+    op = make_crnn_rhs_op(lb, ub, exp_cap, plain)
+
+    @autonomous
+    def rhs(t, y, args):
+        w, mlp_params = args
+        u_full = torch.cat([y, mlp_apply_fn(mlp_params, y)], dim=1)
+        return op(u_full, w.w_in, w.w_b, w.w_out)[:, :ns] + w.w_J
+
+    return rhs
+
+
+def make_crnn_qssa_rhs(lb: float, ub: float, mlp_apply_fn: Callable,
+                       exp_cap: float = 32.0, plain: bool = False) -> Callable:
+    """QSSA hybrid for Robertson (rober_crnn_qssa.jl:122-126): the fast
+    radical y2 is replaced inside the RHS by an MLP of (y1, y3), and the
+    CRNN core runs on ``u_full = [y1, MLP(y1, y3), y3]``. ``args =
+    (weights, mlp_params)``."""
+    op = make_crnn_rhs_op(lb, ub, exp_cap, plain)
+
+    @autonomous
+    def rhs(t, y, args):
+        w, mlp_params = args
+        y2 = mlp_apply_fn(mlp_params, y[:, 0::2])
+        u_full = torch.cat([y[:, 0:1], y2, y[:, 2:3]], dim=1)
+        return op(u_full, w.w_in, w.w_b, w.w_out)
+
+    return rhs
+
+
+# Gas constant J/(mol K) of the cathode model (network.jl:66: R = -1.0/8.314).
+R_J = 8.314
+
+
+def _cathode_exponent(logx, temp, w):
+    """The extended Arrhenius exponent lnA + b ln T - Ea*1e5/(R T) + n log x;
+    logx (..., 3), temp broadcast against it."""
+    temp_term = (torch.log(temp) * w.extra["b"]
+                 - (w.extra["Ea"] * 1e5) / (R_J * temp))
+    return temp_term + w.w_in * logx + w.w_b
+
+
+def _cathode_rates(logx, temp, w, exp_cap: float):
+    return _capped_exp(_cathode_exponent(logx, temp, w), exp_cap)
+
+
+def make_cathode_rhs(lb: float, t0_kelvin: float = 373.15,
+                     exp_cap: float = 32.0) -> Callable:
+    """Sequential decomposition c1 -> c2 -> c3 under a linear heating ramp
+    T = t0_kelvin + beta/60 * t (Cathode/src/network.jl:60-80); y is clipped
+    to [lb, 10]. ``args = (weights, beta [K/min])``; depends on t."""
+
+    def rhs(t, y, args):
+        w, beta = args
+        temp = (t0_kelvin + beta / 60.0 * t)[:, None]
+        rates = _cathode_rates(torch.log(clip(y, lb, 10.0)), temp, w, exp_cap)
+        return torch.stack([-rates[:, 0],
+                            w.w_out[1] * rates[:, 0] - rates[:, 1],
+                            w.w_out[2] * rates[:, 1] - rates[:, 2]], dim=1)
+
+    return rhs
+
+
+def make_cathode_jac(lb: float, t0_kelvin: float = 373.15,
+                     exp_cap: float = 32.0) -> Callable:
+    """The closed-form Jacobian of ``make_cathode_rhs``, the J of
+    crnn_tpu/models/crnn.py:make_cathode_rhs_batch: each rate touches one
+    species, so ``J = A diag(g)`` with ``g_i = r_i n_i / y_i`` (A the
+    sequential stoichiometry), zeroed outside the y clip window and past the
+    exp cap, as the derivative of the clipped RHS is. It equals forward mode
+    of the RHS (``tests/test_torch_cathode.py``) at a fraction of its cost.
+    ``jac(t (B,), y (B, 3), (weights, beta)) -> (B, 3, 3)``."""
+
+    def jac(t, y, args):
+        w, beta = args
+        temp = (t0_kelvin + beta / 60.0 * t)[:, None]
+        yc = clip(y, lb, 10.0)
+        z = _cathode_exponent(torch.log(yc), temp, w)
+        live = (y > lb) & (y < 10.0) & (z < exp_cap)
+        g = torch.where(live, _capped_exp(z, exp_cap) * w.w_in / yc,
+                        torch.zeros_like(z))
+        zero = torch.zeros_like(g[:, 0])
+        return torch.stack([
+            torch.stack([-g[:, 0], zero, zero], dim=-1),
+            torch.stack([w.w_out[1] * g[:, 0], -g[:, 1], zero], dim=-1),
+            torch.stack([zero, w.w_out[2] * g[:, 1], -g[:, 2]], dim=-1),
+        ], dim=1)
+
+    return jac
+
+
+def cathode_hrr(ts: torch.Tensor, ys: torch.Tensor, w, beta, lb: float,
+                t0_kelvin: float = 373.15,
+                exp_cap: float = 32.0) -> torch.Tensor:
+    """Heat-release rate HRR(t) = rates(t) @ delH
+    (Cathode/src/network.jl:82-91,121): ts (n_t,), ys (n_t, 3) -> (n_t,)."""
+    temp = (t0_kelvin + beta / 60.0 * ts)[:, None]
+    rates = _cathode_rates(torch.log(clip(ys, lb, 10.0)), temp, w, exp_cap)
+    return rates @ w.extra["delH"]

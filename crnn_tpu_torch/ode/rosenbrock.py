@@ -48,6 +48,24 @@ def lane_jacfwd(fn, y: torch.Tensor) -> torch.Tensor:
     return cols.permute(1, 2, 0)
 
 
+def give_jac(solver: Solver, jac) -> Solver:
+    """Give ``solver`` (or an AutoSwitch's stiff solver) the Jacobian
+    ``jac(t, y, args)`` where it would take J by forward mode of the RHS it
+    solves. A case whose f runs the kernel ops passes forward mode of the
+    plain twin (``jac_by_forward_mode``), the function JAX's ``jacfwd``
+    differentiates, as the kernel ops have no forward-mode rule; the f
+    evaluations stay on the kernels. Returns ``solver``."""
+    implicit = getattr(solver, "stiff", solver)
+    if hasattr(implicit, "jac") and implicit.jac is None:
+        implicit.jac = jac
+    return solver
+
+
+def jac_by_forward_mode(f: RHS):
+    """``jac(t, y, args)``: ``lane_jacfwd`` of the plain-torch ``f`` in y."""
+    return lambda t, y, args: lane_jacfwd(lambda yy: f(t, yy, args), y)
+
+
 def lane_dfdt(f: RHS, t: torch.Tensor, y: torch.Tensor, args) -> torch.Tensor:
     """Per-lane ``df/dt (B, ns)`` at ``(t (B,), y (B, ns))``: one
     ``torch.func.jvp`` in t with a tangent of ones, which gives every lane's

@@ -28,7 +28,13 @@ ForwardDiff.gradient analogue, case2/case2.jl:195). Forward mode needs a
 loss built from plain torch ops: the kernel ops' ``autograd.Function`` has
 no forward-mode rule (``ops/crnn_kernels.py:_kernel_forward_op``). A case
 whose losses run the kernel ops passes that plain loss as ``loss_fwd``;
-the evaluation pass keeps the kernel ops.
+the evaluation pass keeps the kernel ops. ``grad_mode='rev_while'`` takes
+the derivative 'fwd' takes, of the while driver's loss, by reverse mode:
+PyTorch records the eager while loop, where JAX's ``lax.while_loop`` has
+no reverse mode (the reason the JAX package takes forward mode there). The
+two agree to rounding; reverse mode costs one backward pass where
+``jacfwd`` pushes one tangent per parameter through every operation
+(cathode's 18: PERF.md §6).
 """
 
 from __future__ import annotations
@@ -118,25 +124,31 @@ class Trainer:
         if self.horizon_range is None:
             return torch.ones((n, self.n_save), dtype=dtype)
         lo, hi = self.horizon_range
-        samples = torch.randint(lo, hi + 1, (n,), generator=gen)
+        # an empty range (lo > hi, a cut-down n_save) draws lo, as
+        # jax.random.randint does
+        samples = torch.randint(lo, max(lo, hi) + 1, (n,), generator=gen)
         return prefix_mask(self.n_save, samples, dtype)
 
     def _grad_loss(self) -> Callable:
         """The loss the updates differentiate, as JAX picks it
         (crnn_tpu/train/loop.py:105-116, 126-174): reverse mode through the
-        scan, forward mode through the early-exit driver (or
-        ``loss_fwd``)."""
+        scan, forward mode through the early-exit driver (or ``loss_fwd``),
+        and 'rev_while' the early-exit driver's loss as 'fwd' takes it."""
         if self.mode == "sequential":
             if self.loss_i_exp is None:
                 raise ValueError("mode='sequential' needs loss_i_exp")
             if self.grad_mode == "fwd":
                 return (self.loss_fwd or self.loss_i_exp_eval
                         or self.loss_i_exp)
+            if self.grad_mode == "rev_while":
+                return self.loss_i_exp_eval or self.loss_i_exp
             return self.loss_i_exp
         if self.mode != "batch":
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.grad_mode == "fwd":
             return self.loss_fwd or self.loss_batch_eval or self.loss_batch
+        if self.grad_mode == "rev_while":
+            return self.loss_batch_eval or self.loss_batch
         return self.loss_batch
 
     def value_and_grad(self, params: torch.Tensor, perm: torch.Tensor,
@@ -144,7 +156,7 @@ class Trainer:
         """(mean training loss over ``perm`` under the horizon ``masks``
         (default: all ones), its gradient w.r.t. params) in the configured
         mode and ``grad_mode``."""
-        if self.grad_mode not in ("rev", "fwd"):
+        if self.grad_mode not in ("rev", "fwd", "rev_while"):
             raise ValueError(f"unknown grad_mode {self.grad_mode!r}")
         loss_fn = self._grad_loss()
         params = params.detach()

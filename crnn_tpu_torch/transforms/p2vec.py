@@ -1,7 +1,8 @@
 """Parameter vector -> physical CRNN weights (port of crnn_tpu/transforms/p2vec.py).
 
-The case1, case2 (Arrhenius), case3/GRN, robertson and case1 rev
-(reversible) variants are ported. JAX's ``clip`` is
+The case1, case2 (Arrhenius), case3/GRN, robertson, case1 rev
+(reversible), yeast (hidden species and influx) and cathode (extended
+Arrhenius) variants are ported. JAX's ``clip`` is
 written as ``minimum(maximum(x, lo), hi)`` with tensor bounds
 (``crnn_tpu_torch.clip``): at a tie such as ``w_out == 0`` its gradient is
 0.5, as in JAX, where ``torch.clamp`` would give 1; likewise ``abs`` is
@@ -24,6 +25,8 @@ class CRNNWeights(NamedTuple):
     w_b: torch.Tensor    # (nr,) log rate-constant bias
     w_out: torch.Tensor  # (ns, nr) stoichiometric coefficients
     w_kb: Optional[torch.Tensor] = None  # (nr,) reversible: backward log-k
+    w_J: Optional[torch.Tensor] = None   # (ns,) yeast: learned constant influx
+    extra: Optional[dict] = None         # cathode: named scalar groups
 
 
 def p2vec_case2(p: torch.Tensor, ns: int, nr: int,
@@ -133,4 +136,60 @@ def init_params_reversible(gen: torch.Generator, ns: int, nr: int,
                            dtype=torch.float32, device="cuda") -> torch.Tensor:
     """N(0, 0.25) of length nr*(ns+1). ``gen`` is a CPU generator."""
     p = 0.5 * torch.randn(nr * (ns + 1), generator=gen, dtype=dtype)
+    return p.to(resolve_device(device))
+
+
+def p2vec_yeast(p: torch.Tensor, ns: int, ns_: int, nr: int,
+                w_in_clip: float = 4.0) -> CRNNWeights:
+    """Hidden species and influx: p = [w_b(nr) | w_out(ns_*nr) | w_J(ns) |
+    slope], w_b * 100 slope, w_in = clip(-w_out, 0, 4) over all ns_
+    species (yeast_glycolysis.jl:108-115)."""
+    np_ = nr * (ns_ + 1) + ns + 1
+    slope = p[np_ - 1] * 100.0
+    w_b = p[:nr] * slope
+    w_out = p[nr:nr * (ns_ + 1)].reshape(ns_, nr)
+    w_J = p[nr * (ns_ + 1):np_ - 1]
+    return CRNNWeights(w_in=clip(-w_out, 0.0, w_in_clip), w_b=w_b,
+                       w_out=w_out, w_J=w_J)
+
+
+def init_params_yeast(gen: torch.Generator, ns: int, ns_: int, nr: int,
+                      dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """U(-1, 1) * sqrt(6/(ns_+nr)) of length nr*(ns_+1)+ns+1, slope 0.1
+    (yeast_glycolysis.jl:104-106). ``gen`` is a CPU generator."""
+    n = nr * (ns_ + 1) + ns + 1
+    lim = (6.0 / (ns_ + nr)) ** 0.5
+    p = (torch.rand(n, generator=gen, dtype=dtype) * 2.0 - 1.0) * lim
+    p[-1] = 0.1
+    return p.to(resolve_device(device))
+
+
+def p2vec_cathode(p: torch.Tensor) -> CRNNWeights:
+    """17 named kinetic scalars and a slope: p = [lnA(3) | Ea(3) | b(3) |
+    delH(3) | order(3) | nu(2) | slope] (Cathode/src/network.jl:27-50).
+    ``w_in`` holds the reaction orders, ``w_b`` lnA, ``w_out`` the
+    stoichiometry [1, nu], ``extra`` Ea, b and delH."""
+    slope = p[17] * 10.0
+    w_a = clip(p[0:3] * (slope * 20.0), 0.0, 50.0)
+    w_in_ea = clip(absolute(p[3:6]), 0.0, 3.0)
+    w_delh = clip(absolute(p[9:12]) * 100.0, 10.0, 300.0)
+    w_in_order = clip(p[12:15], 0.01, 10.0)
+    w_out_nu = clip(torch.cat([p.new_ones(1), p[15:17]]), 0.01, 5.0)
+    return CRNNWeights(w_in=w_in_order, w_b=w_a, w_out=w_out_nu,
+                       extra={"Ea": w_in_ea, "b": p[6:9], "delH": w_delh})
+
+
+def init_params_cathode(gen: torch.Generator, dtype=torch.float64,
+                        device="cuda") -> torch.Tensor:
+    """N(0, 1e-4) with physically informed offsets
+    (Cathode/src/network.jl:9-25). ``gen`` is a CPU generator."""
+    p = 0.01 * torch.randn(18, generator=gen, dtype=dtype)
+    p[0:3] += 1.0                                           # lnA
+    p[3:6] += torch.tensor([1.0, 1.1, 1.2], dtype=dtype)    # Ea ordering
+    p[9] += 1.0                                             # delH
+    p[10] += 0.2
+    p[11] += 0.3
+    p[12:15] += 1.0                                         # reaction orders
+    p[15:17] += 1.0                                         # stoich nu
+    p[17] = 0.1                                             # slope
     return p.to(resolve_device(device))

@@ -2,7 +2,9 @@
 PyTorch versions, at the tolerances of chip_smoke.py; epochs of the cases
 on the kernel path; and the ODE suite on the card (the ESDIRK and
 AutoSwitch solvers against the CPU, per-lane case2 under them, robertson's
-adjoint path, w_out_mask and LM finish). Every test carries the ``gpu`` marker
+adjoint path, w_out_mask and LM finish); kernel 4 at the hybrid cases' shapes
+and their epochs on the kernel path; HyChem and cathode on the card
+against the CPU. Every test carries the ``gpu`` marker
 and skips where no card is present. The file imports no JAX, so on the card's machine (no
 JAX there) it runs without the repository's conftest:
 
@@ -758,3 +760,82 @@ def test_robertson_adjoint_mask_and_lm_on_card(cuda_device):
     _, cpu = robertson.run_lm_finish(on_cpu, on_cpu.init_params, max_iters=2)
     assert card["history"].shape == cpu["history"].shape
     np.testing.assert_allclose(card["history"], cpu["history"], rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-6), (np.float64, 1e-12)])
+@pytest.mark.parametrize("batch", [20, 30])
+@pytest.mark.parametrize("ns,nr,ub", [(12, 12, 100.0), (3, 3, 10.0),
+                                      (12, 12, np.inf), (3, 3, np.inf)])
+def test_crnn_rhs_kernel_at_the_hybrid_shapes(cuda_device, dtype, tol, batch,
+                                              ns, nr, ub):
+    """Kernel 4 at the CRNN cores of the hybrid RHSs: yeast's u_full
+    (B, 12) with nr=12 (ub 100) and the QSSA's (B, 3) with nr=3 (ub 10), at
+    the B of their training (20) and evaluation (30) solves, against its
+    plain version."""
+    args = _iso_inputs(batch, dtype, cuda_device, ns, nr)
+    before = tk.crnn_rhs_batched.launches
+    du = tk.crnn_rhs_batched(*args, LB, ub)
+    torch.cuda.synchronize()
+    assert tk.crnn_rhs_batched.launches == before + 1
+    _same_nonfinite_and_close_per_component(
+        du, tk.crnn_rhs_batched_reference(*args, LB, ub), tol)
+
+
+@pytest.mark.parametrize("name", ["yeast", "robertson_qssa"])
+def test_hybrid_epoch_on_kernel_path(cuda_device, name):
+    """One f64 epoch of yeast (TRBDF2) and of the QSSA (Rosenbrock23) at a
+    reduced size on the card: every f runs the MLP in plain torch and the
+    CRNN core on kernel 4 (J by forward mode of the plain twin), and the
+    epoch agrees with the plain path on the same params, perm and masks at
+    rtol 1e-9 (eval losses, grad norm, params)."""
+    from crnn_tpu_torch.cases import robertson_qssa, yeast
+
+    if name == "yeast":
+        mod, cfg_cls = yeast, yeast.YeastConfig
+        kw = dict(n_exp_train=4, n_exp_val=2, ntotal=24, max_steps=96,
+                  dtype="float64")
+    else:
+        mod, cfg_cls = robertson_qssa, robertson_qssa.QSSAConfig
+        kw = dict(n_exp_train=4, n_exp_val=2, datasize=16)
+    setup = mod.build(cfg_cls(**kw))
+    plain = mod.build(cfg_cls(rhs_plain=True, **kw), dataset=setup.dataset)
+    trainer = setup.trainer
+    gen = torch.Generator().manual_seed(0)
+    perm = torch.randperm(4, generator=gen)
+    masks = trainer.sample_masks(gen, 4, torch.float64)
+    tk.crnn_rhs_batched.launches = 0
+    state, m = trainer.epoch(trainer.init(setup.init_params), perm, masks)
+    torch.cuda.synchronize()
+    launches = tk.crnn_rhs_batched.launches
+    assert launches > 0
+    sp, mp = plain.trainer.epoch(plain.trainer.init(plain.init_params), perm,
+                                 masks)
+    assert tk.crnn_rhs_batched.launches == launches
+    assert bool(torch.isfinite(m.loss_exp).all())
+    torch.testing.assert_close(m.loss_exp, mp.loss_exp, rtol=1e-9, atol=0)
+    torch.testing.assert_close(m.grad_norm, mp.grad_norm, rtol=1e-9, atol=0)
+    torch.testing.assert_close(state.params, sp.params, rtol=1e-9,
+                               atol=1e-9 * float(sp.params.abs().max()))
+
+
+def test_hychem_and_cathode_on_card_equal_cpu(cuda_device):
+    """One epoch of HyChem (nr=2, 16 save points) and of cathode (two short
+    curves) on the card and on the CPU from the same params and draws:
+    losses and grad norms at rtol 1e-9. Neither path has a kernel."""
+    from crnn_tpu_torch.cases import cathode, hychem
+    from crnn_tpu_torch.data.loaders import synthetic_dsc
+
+    dsc = synthetic_dsc(heating_rates=(20.0, 15.0), t0_celsius=150.0,
+                        t1_celsius=250.0, dT=10.0)
+    for build in (lambda dev: hychem.build(hychem.HyChemConfig(
+                      nr=2, ntotal=16, device=dev)),
+                  lambda dev: cathode.build(cathode.CathodeConfig(
+                      val_index=1, device=dev), dsc=dsc)):
+        ms = []
+        for dev in ("cuda", "cpu"):
+            s = build(dev)
+            _, m = s.trainer.epoch(s.trainer.init(s.init_params, seed=0))
+            ms.append(m)
+        for k in ("loss_train", "loss_val", "grad_norm"):
+            np.testing.assert_allclose(getattr(ms[0], k).item(),
+                                       getattr(ms[1], k).item(), rtol=1e-9)
