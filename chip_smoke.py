@@ -139,10 +139,13 @@ Phases, each printed with the seconds it took:
    iterations take none: lambda starts at 1e-3 and grows 3x a rejection);
    (e) a robertson epoch with a ``w_out_mask``: the pruned w_out entries
    exactly 0;
-13. hybrid cases: (a) yeast at ``YeastConfig()`` (30 experiments, 300 save
-   points, ns=7 of 12, nr=12, f32, TRBDF2, max_steps 384; data generated
-   on the card): 1 guarded epoch through run_case with kernel 4 counted
-   (> 0); the kernel path against the plain path on the f32 losses at the
+13. hybrid cases, after phase 16, each part on the card in a process of
+   its own beside the other and phases 14-15 (every number of phases 1-12
+   and 16 is taken before they start; the seconds of phases 13-15 are
+   taken beside one another): (a) yeast at ``YeastConfig()`` (30
+   experiments, 300 save points, ns=7 of 12, nr=12, f32, TRBDF2, max_steps
+   384; data generated on the card): 1 guarded epoch through run_case
+   with kernel 4 counted (> 0); the kernel path against the plain path on the f32 losses at the
    trained params at rtol 1e-4 or 3x the plain path's own one-ulp move
    (``f32_losses_vs_plain``), and over a whole f64 epoch at rtol 1e-9 at
    a reduced depth (4 + 2 experiments, every 5th save point, max_steps
@@ -151,9 +154,8 @@ Phases, each printed with the seconds it took:
    counted, and a whole f64 epoch kernel against plain at rtol 1e-9
    (max_steps 96);
 14. single-fit cases, no kernel on their path (every count 0), on the card
-   in a process of their own beside phase 13 (both host-bound, the card
-   mostly idle; their CPU references run in the background from the
-   start): (a) HyChem
+   in a process of their own beside phases 13 and 15 (their CPU references
+   run in the background from the start): (a) HyChem
    at ``HyChemConfig()`` (surrogate trajectory, nr=10, 40 save points,
    f64), 2 epochs through run_case on the card and on the CPU: losses and
    grad norms at 1e-9; (b) ``run_cathode`` for 2 epochs on
@@ -162,7 +164,21 @@ Phases, each printed with the seconds it took:
    snapshot with the best losses written back), losses and grad norms at
    1e-9 or 3x the CPU's one-ulp move; (c) cathode's gradient on one short
    curve by reverse mode through the early-exit driver against
-   ``torch.func.jacfwd`` at 1e-10, with the seconds of each.
+   ``torch.func.jacfwd`` at 1e-10, with the seconds of each;
+15. UQ, no kernel on its path (every count 0), on the card in a process of
+   its own beside phases 13-14: ``run_uq`` of ``CathodeUQConfig()``
+   (100 particles, f64, batch-major Rosenbrock23 with the non-autonomous
+   term, 512-step checkpointed scans) for 2 SVGD iterations, the history
+   taken every iteration, and its run directory (posterior moments, the
+   history tensor); the particles, losses and history against the CPU's
+   run of the same (in the background from the start) per component at
+   rtol 1e-9, or 3x the CPU's own move under one ulp of the particles
+   (always taken) where larger; the seconds an iteration on each;
+16. data parallel on a world of one (nccl, one card): (a) one per-lane f64
+   case2 epoch at full width through ``run_case(dp=1)`` against the batch
+   Trainer's epoch at 1e-9, kernels 1-2 counted over the dp epoch (each
+   > 0); (b) one sharded SVGD step (``build_uq(dp=1)``) against the local
+   step, 100 particles at a reduced 128 steps, at 1e-12.
 
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
@@ -2272,9 +2288,10 @@ def check_crnn_rhs_hybrid_shapes(gen) -> dict:
     return out
 
 
-def run_hybrid(gen) -> dict:
+def run_hybrid(part: str, gen) -> dict:
     """Phase 13: the hybrid-MLP cases on the card, the MLP in plain torch
-    and the CRNN core on kernel 4 in every f. (a) yeast at
+    and the CRNN core on kernel 4 in every f; ``part`` 'a' or 'b', each in
+    a process of its own. (a) yeast at
     ``YeastConfig()`` (30 experiments, 300 save points, ns=7 of ns_=12,
     nr=12, f32, TRBDF2, max_steps 384), its data generated on the card: 1
     guarded epoch through run_case with kernel 4 counted (> 0); the kernel
@@ -2296,8 +2313,30 @@ def run_hybrid(gen) -> dict:
 
     counters = (crnn_rhs_batched,)
     row = {}
-    # (a) yeast
     t0 = time.perf_counter()
+    if part == "b":
+        # (b) the QSSA
+        cfg = robertson_qssa.QSSAConfig()
+        setup, state, hist, (launches,) = train_case(robertson_qssa, cfg, 2,
+                                                     counters)
+        ds = setup.dataset
+        if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
+            fail("robertson_qssa: truth solve failed or produced non-finite "
+                 "data")
+        tk, tp, (n64,) = compare_f64_epochs(
+            robertson_qssa,
+            lambda dtype, **kw: robertson_qssa.QSSAConfig(**kw),
+            ds, setup.init_params, torch.randperm(cfg.n_exp_train,
+                                                  generator=gen).cuda(),
+            torch.ones((cfg.n_exp_train, cfg.datasize), dtype=torch.float64),
+            "robertson_qssa (max_steps 96)", counters=counters, max_steps=96)
+        row.update(qssa_launches=launches,
+                   qssa_launches_per_epoch=launches / 2,
+                   qssa_epoch_s=hist["epoch_s"], qssa_f64_epoch_launches=n64,
+                   qssa_f64_epoch_kernel_s=tk, qssa_f64_epoch_plain_s=tp)
+        print(f"  13(b) robertson_qssa: {time.perf_counter() - t0:.2f} s")
+        return row
+    # (a) yeast
     cfg = yeast.YeastConfig()
     setup, state, hist, (launches,) = train_case(yeast, cfg, 1, counters)
     ds = setup.dataset
@@ -2334,25 +2373,6 @@ def run_hybrid(gen) -> dict:
                yeast_f64_reduced_epoch_kernel_s=tk,
                yeast_f64_reduced_epoch_plain_s=tp)
     print(f"  13(a) yeast: {time.perf_counter() - t0:.2f} s")
-
-    # (b) the QSSA
-    t0 = time.perf_counter()
-    cfg = robertson_qssa.QSSAConfig()
-    setup, state, hist, (launches,) = train_case(robertson_qssa, cfg, 2,
-                                                 counters)
-    ds = setup.dataset
-    if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
-        fail("robertson_qssa: truth solve failed or produced non-finite data")
-    tk, tp, (n64,) = compare_f64_epochs(
-        robertson_qssa, lambda dtype, **kw: robertson_qssa.QSSAConfig(**kw),
-        ds, setup.init_params, torch.randperm(cfg.n_exp_train,
-                                              generator=gen).cuda(),
-        torch.ones((cfg.n_exp_train, cfg.datasize), dtype=torch.float64),
-        "robertson_qssa (max_steps 96)", counters=counters, max_steps=96)
-    row.update(qssa_launches=launches, qssa_launches_per_epoch=launches / 2,
-               qssa_epoch_s=hist["epoch_s"], qssa_f64_epoch_launches=n64,
-               qssa_f64_epoch_kernel_s=tk, qssa_f64_epoch_plain_s=tp)
-    print(f"  13(b) robertson_qssa: {time.perf_counter() - t0:.2f} s")
     return row
 
 
@@ -2454,15 +2474,43 @@ def cathode_witness() -> float:
         for d in (math.inf, -math.inf))
 
 
-def single_fit_child(out_path: str, refs_path: str):
-    """Phase 14 (``run_single_fit``) in a process of its own, on the card
-    beside phase 13, against the CPU references at ``refs_path``. Its
-    output goes to a log beside ``out_path``, its seconds to
-    ``out_path``; a failed check exits non-zero."""
+def wait_json(path: str, timeout_s: float = 1100.0):
+    """The JSON another process writes to ``path``, waited for (polled
+    until it exists and parses)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            return json.loads(Path(path).read_text())
+        except (OSError, ValueError):
+            if time.monotonic() > deadline:
+                fail(f"{path} was not written within {timeout_s} s")
+            time.sleep(1.0)
+
+
+def hybrid_child(out_path: str, part: str, seed: int):
+    """Phase 13 part ``part`` (``run_hybrid``) in a process of its own, on
+    the card beside the other parts and phases 14-15: its kernel rows'
+    numbers to ``out_path``, its output to a log beside it; a failed check
+    exits non-zero."""
     with open(out_path + ".log", "w") as log, \
             contextlib.redirect_stdout(log):
         t0 = time.perf_counter()
-        out = run_single_fit(lambda: json.loads(Path(refs_path).read_text()))
+        out = run_hybrid(part, torch.Generator().manual_seed(seed))
+        print(f"[13({part}) hybrid case] done in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    Path(out_path).write_text(json.dumps(out))
+
+
+def single_fit_child(out_path: str, refs_path: str):
+    """Phase 14 (``run_single_fit``) in a process of its own, on the card
+    beside phases 13 and 15, against the CPU references at ``refs_path`` (waited
+    for: they run in the background from the start). Its output goes to a
+    log beside ``out_path``, its seconds to ``out_path``; a failed check
+    exits non-zero."""
+    with open(out_path + ".log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        out = run_single_fit(lambda: wait_json(refs_path))
         print(f"[14 single-fit cases] done in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
     Path(out_path).write_text(json.dumps(out))
@@ -2561,6 +2609,190 @@ def run_single_fit(refs) -> dict:
     return out
 
 
+# --- phases 15-16: the UQ case and the data-parallel runner ------------------
+
+UQ_ITERS = 2
+
+
+def uq_run(device: str, nudge: float = 0.0) -> dict:
+    """``run_uq`` of ``CathodeUQConfig()`` for ``UQ_ITERS`` SVGD iterations
+    (history every iteration) on ``device``, from the seeded particles
+    (drawn on the CPU, so the same on every device), moved one ulp toward
+    ``nudge`` (+-inf) when given. Returns the particles, the losses, the
+    history tensor and the seconds, as lists, and the run's info."""
+    import dataclasses
+
+    from crnn_tpu_torch.cases import cathode_uq
+
+    cfg = cathode_uq.CathodeUQConfig(n_iters=UQ_ITERS, gap=1, device=device)
+    particles = None
+    if nudge:
+        p0, _, _ = cathode_uq.build_uq(dataclasses.replace(cfg, device="cpu"))
+        particles = torch.nextafter(p0, torch.full_like(p0, nudge)).numpy()
+    t0 = time.perf_counter()
+    p, info = cathode_uq.run_uq(cfg, verbose=False, particles=particles)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"particles": p.cpu().tolist(), "loss_train": info["loss_train"],
+            "loss_val": info["loss_val"], "history": info["history"].tolist(),
+            "seconds": seconds, "maxiters": cfg.maxiters}, p, info
+
+
+def uq_cpu_references(out_path: str):
+    """Phase 15's CPU side, in a process of its own started with the
+    script: ``uq_run`` on the CPU (two threads), and again from particles
+    one ulp up (the witness). Writes both as JSON to ``out_path``."""
+    torch.set_num_threads(2)
+    out = {"cpu": uq_run("cpu")[0], "cpu_ulp": uq_run("cpu", math.inf)[0]}
+    Path(out_path).write_text(json.dumps(out))
+
+
+def uq_child(out_path: str):
+    """Phase 15 on the card in a process of its own (beside phases 13-14):
+    ``uq_run`` on the card with every kernel counter at 0 (the UQ path has
+    no kernel; each count must stay 0), then ``write_outputs`` into a run
+    directory (particles, losses, posterior moments, the history tensor;
+    figures need matplotlib, which the card's machine lacks). Writes the
+    run's numbers to ``out_path``; its output goes to a log beside it."""
+    import numpy as np
+
+    from crnn_tpu_torch.cases.cathode_uq import write_outputs
+    from crnn_tpu_torch.ops import crnn_kernels as ck
+
+    counters = (ck.crnn_rhs_batched, ck.crnn_rhs_jac_batched,
+                ck.arrhenius_rhs_batched, ck.arrhenius_rhs_jac_batched)
+    with open(out_path + ".log", "w") as log, \
+            contextlib.redirect_stdout(log), \
+            tempfile.TemporaryDirectory() as tmp:
+        for c in counters:
+            c.launches = 0
+        out, particles, info = uq_run("cuda")
+        launches = [c.launches for c in counters]
+        moments = write_outputs(tmp, particles, info, figures=False)
+        files = {f: np.load(Path(tmp) / f).shape for f in
+                 ("particles.npy", "history.npy")}
+        n = len(out["particles"])
+        print(f"  15 cathode_uq: {UQ_ITERS} SVGD iterations of "
+              f"CathodeUQConfig() ({n} particles, f64, batch-major "
+              f"Rosenbrock23, {out['maxiters']} steps) on the card in "
+              f"{out['seconds']:.2f} s ({out['seconds'] / UQ_ITERS:.2f} s an "
+              f"iteration); kernel launches {launches}; run dir {files}, "
+              f"posterior std {np.round(moments['std'], 4).tolist()}",
+              flush=True)
+        if max(launches):
+            fail(f"15: a kernel launched on a path without kernels: "
+                 f"{launches}")
+        if not (files["particles.npy"] == (n, 17)
+                and files["history.npy"] == (UQ_ITERS, n, 17)
+                and np.isfinite(moments["std"]).all()
+                and (Path(tmp) / "moments.npz").exists()):
+            fail(f"15: the run directory is incomplete: {files}")
+    Path(out_path).write_text(json.dumps(out))
+
+
+def uq_card_vs_cpu(card: dict, refs: dict) -> dict:
+    """Phase 15's gate: the card's particles, losses and history against
+    the CPU's, per component at rtol 1e-9, or 3x the CPU's own move under
+    one ulp of the particles (the witness, always taken) where larger."""
+    keys = ("particles", "loss_train", "loss_val", "history")
+
+    def rel(a, b):
+        return max(float(((torch.tensor(a[k], dtype=torch.float64)
+                           - torch.tensor(b[k], dtype=torch.float64)).abs()
+                          / torch.tensor(b[k], dtype=torch.float64).abs()
+                          ).max()) for k in keys)
+
+    cpu, witness = refs["cpu"], rel(refs["cpu_ulp"], refs["cpu"])
+    err = rel(card, cpu)
+    gate = max(1e-9, 3.0 * witness)
+    print(f"  15 cathode_uq card vs CPU: max rel diff per component "
+          f"{err:.3e} (one-ulp witness {witness:.3e}, gate {gate:.3e}); "
+          f"losses card {card['loss_train']} / {card['loss_val']}, CPU "
+          f"{cpu['loss_train']} / {cpu['loss_val']}; CPU {UQ_ITERS} "
+          f"iterations {cpu['seconds']:.2f} s (two threads, background)")
+    if not (err <= gate and all(math.isfinite(x) for x in
+                                card["loss_train"] + card["loss_val"])):
+        fail("15: the card's UQ run differs from the CPU's")
+    return {"uq_card_vs_cpu_rel": err, "uq_ulp_witness": witness,
+            "uq_card_s_per_iter": card["seconds"] / UQ_ITERS,
+            "uq_cpu_s_per_iter": cpu["seconds"] / UQ_ITERS}
+
+
+def run_data_parallel() -> dict:
+    """Phase 16 on a world of one (nccl, this process): (a) one per-lane
+    case2 epoch (``Case2Config(batch_major=False, dtype='float64')``, full
+    width) through ``run_case(dp=1)`` against the batch Trainer's epoch on
+    the same data and params at rtol 1e-9 (losses, grad norm, params), with
+    kernels 1-2 counted over the dp epoch (each > 0); (b) one sharded SVGD
+    step (``build_uq(dp=1)``) against the local step, 100 particles at a
+    reduced depth of 128 steps, at rtol 1e-12. Returns the launch counts and
+    seconds."""
+    from crnn_tpu_torch.cases import case2
+    from crnn_tpu_torch.cases.base import run_case
+    from crnn_tpu_torch.cases.cathode_uq import CathodeUQConfig, build_uq
+    from crnn_tpu_torch.ops import crnn_kernels as ck
+    from crnn_tpu_torch.parallel import mesh
+
+    counters = (ck.arrhenius_rhs_batched, ck.arrhenius_rhs_jac_batched)
+    cfg = case2.Case2Config(batch_major=False, dtype="float64")
+    ref = case2.build(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_b, m = ref.trainer.epoch(ref.trainer.init(ref.init_params))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    out = {}
+    with mesh.process_group(1, 0, device="cuda"), \
+            tempfile.TemporaryDirectory() as tmp:
+        setup = case2.build(cfg, dataset=ref.dataset)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, hist = run_case(setup, 1, out_dir=tmp, dp=1, log_every=0)
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+        errs = {k: abs(hist[k][0] - float(getattr(m, k))) / abs(
+            float(getattr(m, k))) for k in _HIST}
+        errs["params"] = float(((state.params - state_b.params).abs()
+                                / state_b.params.abs().max()).max())
+        print(f"  16(a) case2 per-lane f64 epoch through run_case(dp=1) "
+              f"(nccl, world 1) {dp_s:.2f} s against the batch epoch "
+              f"{batch_s:.2f} s; rel diff {errs}; kernel launches in the "
+              f"dp epoch " + ", ".join(f"{c.__name__}={n}" for c, n in
+                                       zip(counters, launches)))
+        if min(launches) == 0:
+            fail(f"16(a): a kernel of the dp epoch launched 0 times: "
+                 f"{launches}")
+        if not max(errs.values()) <= 1e-9:
+            fail("16(a): the dp=1 epoch differs from the batch epoch")
+        # (b) the sharded SVGD step against the local step
+        uq = CathodeUQConfig(maxiters=128)
+        p, step_local, _ = build_uq(uq)
+        p_dp, step_dp, _ = build_uq(CathodeUQConfig(maxiters=128, dp=1))
+        t0 = time.perf_counter()
+        new_l, loss_l = step_local(p, 0, uq.stepsize)
+        torch.cuda.synchronize()
+        local_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        new_d, loss_d = step_dp(p_dp, 0, uq.stepsize)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        rel = max(float(((new_d - new_l).abs() / new_l.abs()).max()),
+                  abs(loss_d.item() - loss_l.item()) / abs(loss_l.item()))
+        print(f"  16(b) sharded SVGD step (dp=1) {sharded_s:.2f} s against "
+              f"the local step {local_s:.2f} s ({p.shape[0]} particles, "
+              f"128 steps): "
+              f"max rel diff {rel:.3e} (gate 1e-12)")
+        if not rel <= 1e-12:
+            fail("16(b): the sharded SVGD step differs from the local step")
+    out["arrhenius_rhs"] = {"dp_epoch_launches": launches[0],
+                            "dp_epoch_s": dp_s, "dp_batch_epoch_s": batch_s}
+    out["arrhenius_rhs_jac"] = {"dp_epoch_launches": launches[1]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -2576,6 +2808,7 @@ def main() -> int:
     # own while the card runs the phases before them
     bg = Background()
     bg.start("refs", cpu_references)
+    bg.start("uq_refs", uq_cpu_references)
     try:
         return run_phases(bg)
     finally:
@@ -2621,8 +2854,9 @@ class Background:
 
 
 def run_phases(bg: Background) -> int:
-    """Phases 1-14 and the closing lines; ``bg`` holds the CPU work that
-    runs beside them (``cpu_references``, ``lm_cpu_references``)."""
+    """Phases 1-16 and the closing lines; ``bg`` holds the CPU work that
+    runs beside them (``cpu_references``, ``lm_cpu_references``,
+    ``uq_cpu_references``) and phases 14-15 on the card."""
     def refs():
         return bg.result("refs")
 
@@ -2786,17 +3020,31 @@ def run_phases(bg: Background) -> int:
         iso_jac_row.update(rob_rows["crnn_rhs_jac"])
         iso_row["ode_suite_card_s"] = solver_s
 
-    # phase 14 (no kernel, no kernel timing) runs on the card in a process
-    # of its own beside phase 13: both are host-bound, the card mostly
-    # idle. The new phases draw from a generator of their own, so the
-    # earlier phases see the draws they saw before them
-    with phase("13 hybrid cases, 14 single-fit cases beside it"):
-        refs()
+    with phase("16 data parallel"):
+        dp_rows = run_data_parallel()
+        kernel_row.update(dp_rows["arrhenius_rhs"])
+        jac_row.update(dp_rows["arrhenius_rhs_jac"])
+
+    # phases 13-15 run on the card in four processes of their own, beside
+    # one another, after every phase that times into the kernels line: no
+    # number of phases 1-12 and 16 is taken beside them. Each part of
+    # phase 13 draws from a generator of its own
+    with phase("13-15 (13(a), 13(b), 14 and 15 beside one another)"):
+        bg.start("phase13a", hybrid_child, "a", 17)
+        bg.start("phase13b", hybrid_child, "b", 19)
         bg.start("phase14", single_fit_child, bg.path("refs.json"))
-        iso_row.update(run_hybrid(torch.Generator().manual_seed(17)))
+        bg.start("phase15", uq_child)
+        for part in ("a", "b"):
+            iso_row.update(bg.result(f"phase13{part}"))
+            print(Path(bg.path(f"phase13{part}.json") + ".log").read_text(),
+                  end="")
         single_fit = bg.result("phase14")
         print(Path(bg.path("phase14.json") + ".log").read_text(), end="")
         print("single-fit seconds: " + json.dumps(single_fit))
+        uq_card = bg.result("phase15")
+        print(Path(bg.path("phase15.json") + ".log").read_text(), end="")
+        uq = uq_card_vs_cpu(uq_card, bg.result("uq_refs"))
+        print("UQ: " + json.dumps(uq))
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("library_ms: null for every kernel: no single PyTorch call computes "

@@ -55,6 +55,15 @@ class CaseSetup:
     # flat params -> the params tree of the JAX package, for a case whose
     # params are a tree there (transforms/ravel.py); None: a flat vector
     unravel: Optional[Callable] = None
+    # (build_fn, cfg, kwargs): ``build_fn(cfg, **kwargs)`` builds this setup
+    # again, from picklable pieces, in a rank of its own (the dp runner);
+    # the rank sets ``cfg.device`` and moves the kwargs' tensors there
+    recipe: Optional[tuple] = None
+
+
+# the --dp flag of the case CLIs
+DP_HELP = ("data-parallel over N ranks (-1: one per card; on the CPU N gloo "
+           "processes), batch updates")
 
 
 def seed_generators(seed: int, n: int) -> list[torch.Generator]:
@@ -88,20 +97,53 @@ def _save_best(run_dir: str, name: str, best: BestState, quiet: bool = False,
               f"(train {float(best.loss_train):.4e}) -> p_opt", flush=True)
 
 
+def observe_run(setup: CaseSetup, run_dir: str, state: TrainState,
+                best: BestState, history: dict, e: int, figures: bool):
+    """Every ``n_plot`` epochs and at the end: the weights, the best losses
+    so far, the figures (one experiment's prediction, the loss curves),
+    ``checkpoint.pt``, ``best.pt`` and ``p_opt``."""
+    fig_dir = os.path.join(run_dir, "figs")
+    display_weights(setup.weights_fn(state.params), setup.dydt_scale)
+    print(f"[{setup.name}] epoch {state.epoch} min loss train "
+          f"{np.min(history['loss_train']):.4e} val "
+          f"{np.min(history['loss_val']):.4e}", flush=True)
+    if figures:
+        i_show = int(np.random.default_rng(e).integers(
+            0, setup.dataset.ys.shape[0]))
+        with torch.no_grad():
+            pred = setup.predict(state.params, i_show)
+        plot_experiment(setup.dataset.ts, setup.dataset.ys[i_show], pred,
+                        os.path.join(fig_dir, f"i_exp_{i_show}.png"),
+                        species=setup.species, logx=setup.logx_plots)
+        plot_loss_curves(history, os.path.join(fig_dir, "loss.png"))
+    save_checkpoint(os.path.join(run_dir, "checkpoint.pt"), state)
+    save_checkpoint(os.path.join(run_dir, "best.pt"), best)
+    _save_best(run_dir, setup.name, best, quiet=True, unravel=setup.unravel)
+
+
 def run_case(setup: CaseSetup, n_epoch: int, out_dir: str = "runs",
              n_plot: int = 50, restart: bool = False, seed: int = 0,
-             log_every: int = 10,
+             log_every: int = 10, dp: int = 0,
              epochs_per_dispatch: int = 1) -> tuple[TrainState, dict]:
     """Train ``n_epoch`` guarded epochs with metrics, checkpoints, the
     best-val params and figures in ``<out_dir>/<name>/`` (module docstring).
+
+    ``dp`` > 0 trains data-parallel over ``dp`` ranks (``dp=-1``: one per
+    card) through ``parallel/dp_runner.py:run_case_dp``, which needs the
+    case's ``loss_on_data``; ``epochs_per_dispatch`` does not apply there.
 
     ``epochs_per_dispatch`` > 1 runs the epochs in chunks of that many
     (``Trainer.guarded_epochs_fn``); metrics stay per epoch, and figures and
     checkpoints come at chunk boundaries. Returns (state, history) with this
     run's per-epoch losses, grad norms and seconds, and the best-val carry.
     """
+    if dp:
+        from crnn_tpu_torch.parallel.dp_runner import run_case_dp
+
+        return run_case_dp(setup, n_epoch, n_ranks=None if dp < 0 else dp,
+                           out_dir=out_dir, n_plot=n_plot, restart=restart,
+                           seed=seed, log_every=log_every)
     run_dir = os.path.join(out_dir, setup.name)
-    fig_dir = os.path.join(run_dir, "figs")
     ckpt_path = os.path.join(run_dir, "checkpoint.pt")
     best_path = os.path.join(run_dir, "best.pt")
     os.makedirs(run_dir, exist_ok=True)
@@ -131,23 +173,7 @@ def run_case(setup: CaseSetup, n_epoch: int, out_dir: str = "runs",
                      "epoch_s": []}
 
     def observe(e):
-        display_weights(setup.weights_fn(state.params), setup.dydt_scale)
-        print(f"[{setup.name}] epoch {state.epoch} min loss train "
-              f"{np.min(history['loss_train']):.4e} val "
-              f"{np.min(history['loss_val']):.4e}", flush=True)
-        if figures:
-            i_show = int(np.random.default_rng(e).integers(
-                0, setup.dataset.ys.shape[0]))
-            with torch.no_grad():
-                pred = setup.predict(state.params, i_show)
-            plot_experiment(setup.dataset.ts, setup.dataset.ys[i_show], pred,
-                            os.path.join(fig_dir, f"i_exp_{i_show}.png"),
-                            species=setup.species, logx=setup.logx_plots)
-            plot_loss_curves(history, os.path.join(fig_dir, "loss.png"))
-        save_checkpoint(ckpt_path, state)
-        save_checkpoint(best_path, best)
-        _save_best(run_dir, setup.name, best, quiet=True,
-                   unravel=setup.unravel)
+        observe_run(setup, run_dir, state, best, history, e, figures)
 
     k = max(1, int(epochs_per_dispatch))
     step = trainer.guarded_epoch_fn()

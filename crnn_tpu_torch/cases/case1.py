@@ -24,7 +24,8 @@ from typing import Optional
 import torch
 
 from crnn_tpu_torch import clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.cases.base import (DP_HELP, CaseSetup, run_case,
+                                      seed_generators)
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset_odesolve
 from crnn_tpu_torch.data.truth import CASE1_K, case1_truth
 from crnn_tpu_torch.models.crnn import make_crnn_rhs
@@ -145,7 +146,8 @@ def build(cfg: Case1Config = Case1Config(),
     return CaseSetup(name="case1", trainer=trainer, init_params=init_params,
                      predict=predict, weights_fn=weights_fn, dataset=dataset,
                      species=["A", "B", "C", "D", "E"],
-                     loss_on_data=loss_on_data)
+                     loss_on_data=loss_on_data,
+                     recipe=(build, cfg, {"dataset": dataset}))
 
 
 def main(argv=None):
@@ -159,11 +161,12 @@ def main(argv=None):
                     help="resume from <out>/case1/checkpoint.pt")
     ap.add_argument("--p-cutoff", type=float, default=0.0)
     ap.add_argument("--out", default="runs_torch")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = Case1Config(device=args.device, mode=args.mode,
                       p_cutoff=args.p_cutoff)
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
-                    restart=args.restart)
+                    restart=args.restart, dp=args.dp)
 
 
 if __name__ == "__main__":

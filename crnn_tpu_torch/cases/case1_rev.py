@@ -25,7 +25,8 @@ from typing import Optional
 import torch
 
 from crnn_tpu_torch import resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.cases.base import (DP_HELP, CaseSetup, run_case,
+                                      seed_generators)
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset_odesolve
 from crnn_tpu_torch.data.truth import REVERSIBLE_K, reversible_truth
 from crnn_tpu_torch.models.crnn import make_crnn_reversible_rhs
@@ -134,7 +135,8 @@ def build(cfg: Case1RevConfig = Case1RevConfig(),
                      init_params=init_params, predict=predict,
                      weights_fn=weights_fn, dataset=dataset,
                      species=["A", "B", "C", "D", "E"],
-                     loss_on_data=loss_on_data)
+                     loss_on_data=loss_on_data,
+                     recipe=(build, cfg, {"dataset": dataset}))
 
 
 def main(argv=None):
@@ -147,10 +149,11 @@ def main(argv=None):
     ap.add_argument("--restart", action="store_true",
                     help="resume from <out>/case1_rev/checkpoint.pt")
     ap.add_argument("--out", default="runs_torch")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = Case1RevConfig(device=args.device, mode=args.mode)
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
-                    restart=args.restart)
+                    restart=args.restart, dp=args.dp)
 
 
 if __name__ == "__main__":

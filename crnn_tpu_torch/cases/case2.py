@@ -46,7 +46,8 @@ from typing import Optional, Sequence
 import torch
 
 from crnn_tpu_torch import clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.cases.base import (DP_HELP, CaseSetup, run_case,
+                                      seed_generators)
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset
 from crnn_tpu_torch.data.truth import (CASE2_EA, CASE2_LOGA, case2_arrhenius,
                                        case2_truth, case2_truth_jac)
@@ -256,7 +257,7 @@ def build(cfg: Case2Config = Case2Config(),
         dataset=dataset,
         species=["TG", "ROH", "DG", "MG", "GL", "R'CO2R"],
         loss_on_data=loss_on_data,
-    )
+        recipe=(build, cfg, {"dataset": dataset}))
 
 
 def main(argv=None):
@@ -276,6 +277,7 @@ def main(argv=None):
     ap.add_argument("--out", default="runs_torch")
     ap.add_argument("--epochs-per-dispatch", type=int, default=1,
                     help="run the epochs in chunks of N")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = Case2Config(device=args.device, mode=args.mode, solver=args.solver,
                       p_cutoff=args.p_cutoff)
@@ -284,7 +286,8 @@ def main(argv=None):
         cfg.missing_u0 = True
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
                     restart=args.restart,
-                    epochs_per_dispatch=args.epochs_per_dispatch)
+                    epochs_per_dispatch=args.epochs_per_dispatch,
+                    dp=args.dp)
 
 
 if __name__ == "__main__":

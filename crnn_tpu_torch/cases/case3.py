@@ -28,7 +28,8 @@ from typing import Optional
 import torch
 
 from crnn_tpu_torch import clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.cases.base import (DP_HELP, CaseSetup, run_case,
+                                      seed_generators)
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset_odesolve
 from crnn_tpu_torch.data.truth import CASE3_K, GRN_K, case3_truth, grn_truth
 from crnn_tpu_torch.models.crnn import make_crnn_scaled_rhs
@@ -188,7 +189,8 @@ def build(cfg: Case3Config = Case3Config(),
     return CaseSetup(name=cfg.variant, trainer=trainer,
                      init_params=init_params, predict=predict,
                      weights_fn=weights_fn, dataset=dataset,
-                     dydt_scale=dydt_scale, loss_on_data=loss_on_data)
+                     dydt_scale=dydt_scale, loss_on_data=loss_on_data,
+                     recipe=(build, cfg, {"dataset": dataset}))
 
 
 def main(argv=None):
@@ -205,12 +207,14 @@ def main(argv=None):
     ap.add_argument("--out", default="runs_torch")
     ap.add_argument("--epochs-per-dispatch", type=int, default=1,
                     help="run the epochs in chunks of N")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = replace(grn_config() if args.variant == "grn" else Case3Config(),
                   device=args.device, mode=args.mode, p_cutoff=args.p_cutoff)
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
                     restart=args.restart,
-                    epochs_per_dispatch=args.epochs_per_dispatch)
+                    epochs_per_dispatch=args.epochs_per_dispatch,
+                    dp=args.dp)
 
 
 if __name__ == "__main__":

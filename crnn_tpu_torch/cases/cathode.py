@@ -33,7 +33,7 @@ back into the snapshot. The measured curves are read by
 case runs on ``synthetic_dsc``.
 
     python -m crnn_tpu_torch.cases.cathode [--config my.yaml] [--epochs N]
-        [--data-dir DIR] [--out DIR] [--device cpu]
+        [--data-dir DIR] [--out DIR] [--device cpu] [--dp N]
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from crnn_tpu_torch import clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup
+from crnn_tpu_torch.cases.base import DP_HELP, CaseSetup, run_case
 from crnn_tpu_torch.data.generate import Dataset
 from crnn_tpu_torch.data.loaders import (DSCData, load_cathode_dir,
                                          synthetic_dsc)
@@ -138,6 +138,16 @@ def build(cfg: CathodeConfig = CathodeConfig(),
             return torch.stack(out)
         return loss
 
+    def loss_on_data(p, u0_b, ys_b, horizon_masks, unroll="scan"):
+        """The dp runner's loss: each row of ``u0_b`` holds its curve's
+        index (each curve has its own time row and heating rate)."""
+        out = []
+        for i, y, m in zip(u0_b.tolist(), ys_b, horizon_masks):
+            w = masks[i] * m
+            out.append(torch.sum(torch.abs(predict_hrr(p, i, unroll)
+                                           - y[:, 0]) * w) / torch.sum(w))
+        return torch.stack(out)
+
     trainer = Trainer(
         loss_i_exp=make_loss("scan"),
         loss_i_exp_eval=make_loss("while"),
@@ -165,7 +175,9 @@ def build(cfg: CathodeConfig = CathodeConfig(),
             device=device),
         predict=lambda p, i: predict_hrr(p, i)[:, None],
         weights_fn=p2vec_cathode, dataset=dataset, species=["HRR"],
-        extras={"dsc": dsc, "config": cfg, "predict_hrr": predict_hrr})
+        loss_on_data=loss_on_data,
+        extras={"dsc": dsc, "config": cfg, "predict_hrr": predict_hrr},
+        recipe=(build, cfg, {"dsc": dsc}))
 
 
 def run_cathode(cfg: CathodeConfig, out_dir: str = "runs_torch",
@@ -237,6 +249,8 @@ def main(argv=None):
     ap.add_argument("--out", default="runs_torch")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the config's (cuda)")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP
+                    + "; the generic runner in place of the YAML lifecycle")
     args = ap.parse_args(argv)
     cfg = (config_from_yaml(CathodeConfig, args.config) if args.config
            else CathodeConfig())
@@ -246,6 +260,10 @@ def main(argv=None):
         cfg.data_dir = args.data_dir
     if args.device:
         cfg.device = args.device
+    if args.dp:
+        cfg.mode = "batch"  # dp updates are batch updates (dp_runner.py)
+        return run_case(build(cfg), n_epoch=cfg.n_epoch, out_dir=args.out,
+                        restart=cfg.is_restart, dp=args.dp)
     return run_cathode(cfg, out_dir=args.out, config_yaml=args.config)
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from dataclasses import replace
 
-from crnn_tpu_torch.cases.base import run_case
+from crnn_tpu_torch.cases.base import DP_HELP, run_case
 from crnn_tpu_torch.cases.case3 import Case3Config, build, grn_config
 
 __all__ = ["Case3Config", "build", "grn_config"]
@@ -33,11 +33,12 @@ def main(argv=None):
     ap.add_argument("--restart", action="store_true",
                     help="resume from <out>/grn/checkpoint.pt")
     ap.add_argument("--out", default="runs_torch")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = replace(grn_config(), device=args.device, mode=args.mode,
                   p_cutoff=args.p_cutoff, lr_decay_steps=args.lr_decay_steps)
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
-                    restart=args.restart)
+                    restart=args.restart, dp=args.dp)
 
 
 if __name__ == "__main__":

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from crnn_tpu_torch import clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case
+from crnn_tpu_torch.cases.base import DP_HELP, CaseSetup, run_case
 from crnn_tpu_torch.data.generate import Dataset
 from crnn_tpu_torch.data.interp import make_interpolant, resample_log_grid
 from crnn_tpu_torch.ode import get_solver
@@ -244,7 +244,8 @@ def build(cfg: HyChemConfig = HyChemConfig()) -> CaseSetup:
                      weights_fn=p2vec, dataset=dataset,
                      species=VARNAMES[:ns], logx_plots=True,
                      loss_on_data=loss_on_data,
-                     extras={"e_null": e_null, "config": cfg})
+                     extras={"e_null": e_null, "config": cfg},
+                     recipe=(build, cfg, {}))
 
 
 def main(argv=None):
@@ -262,6 +263,7 @@ def main(argv=None):
     ap.add_argument("--grad-max", type=float, default=None)
     ap.add_argument("--restart", action="store_true",
                     help="resume from <out>/hychem/checkpoint.pt")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = HyChemConfig(data_path=args.data,
                        project_elements=args.project_elements,
@@ -271,7 +273,7 @@ def main(argv=None):
     if args.grad_max is not None:
         cfg.grad_max = args.grad_max
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
-                    restart=args.restart)
+                    restart=args.restart, dp=args.dp)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,8 @@ from typing import Optional
 import torch
 
 from crnn_tpu_torch import resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.cases.base import (DP_HELP, CaseSetup, run_case,
+                                      seed_generators)
 from crnn_tpu_torch.data.generate import (Dataset, generate_dataset_odesolve,
                                           latin_hypercube)
 from crnn_tpu_torch.data.truth import ROBERTSON_K, robertson_truth
@@ -199,7 +200,8 @@ def build(cfg: RobertsonConfig = RobertsonConfig(),
                                           dtype=train_dtype, device=device),
         predict=predict, weights_fn=weights_fn, dataset=dataset,
         dydt_scale=dydt_scale, logx_plots=True, loss_on_data=loss_on_data,
-        extras={"loss_lm": loss_lm, "config": cfg})
+        extras={"loss_lm": loss_lm, "config": cfg},
+        recipe=(build, cfg, {"dataset": dataset}))
 
 
 def run_lm_finish(setup: CaseSetup, params, max_iters: int = 200):
@@ -227,10 +229,11 @@ def main(argv=None):
     ap.add_argument("--restart", action="store_true",
                     help="resume from <out>/robertson/checkpoint.pt")
     ap.add_argument("--out", default="runs_torch")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     setup = build(RobertsonConfig(device=args.device, mode=args.mode))
     state, hist = run_case(setup, n_epoch=args.epochs, out_dir=args.out,
-                           restart=args.restart)
+                           restart=args.restart, dp=args.dp)
     if args.lm_finish:
         _, info = run_lm_finish(setup, state.params)
         print("LM finish:", info["cost"], "converged:", info["converged"])

@@ -29,7 +29,8 @@ from typing import Optional
 import torch
 
 from crnn_tpu_torch import absolute, clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.cases.base import (DP_HELP, CaseSetup, run_case,
+                                      seed_generators)
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset_odesolve
 from crnn_tpu_torch.data.truth import ROBERTSON_K, robertson_truth
 from crnn_tpu_torch.models.crnn import make_crnn_qssa_rhs
@@ -165,7 +166,8 @@ def build(cfg: QSSAConfig = QSSAConfig(),
                      init_params=init_params, predict=predict,
                      weights_fn=weights_fn, dataset=dataset, logx_plots=True,
                      loss_on_data=loss_on_data,
-                     extras={"mlp_apply": mlp_apply}, unravel=unravel)
+                     extras={"mlp_apply": mlp_apply}, unravel=unravel,
+                     recipe=(build, cfg, {"dataset": dataset}))
 
 
 def main(argv=None):
@@ -179,12 +181,13 @@ def main(argv=None):
                     help="resume from <out>/robertson_qssa/checkpoint.pt")
     ap.add_argument("--out", default="runs_torch")
     ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = QSSAConfig(device=args.device, mode=args.mode)
     if args.lr is not None:
         cfg.lr = args.lr
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
-                    restart=args.restart)
+                    restart=args.restart, dp=args.dp)
 
 
 if __name__ == "__main__":

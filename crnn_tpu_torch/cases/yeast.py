@@ -31,7 +31,8 @@ from typing import Optional
 import torch
 
 from crnn_tpu_torch import clip, resolve_device
-from crnn_tpu_torch.cases.base import CaseSetup, run_case, seed_generators
+from crnn_tpu_torch.cases.base import (DP_HELP, CaseSetup, run_case,
+                                      seed_generators)
 from crnn_tpu_torch.data.generate import Dataset, generate_dataset_odesolve
 from crnn_tpu_torch.data.truth import (YEAST_IC_LB, YEAST_IC_UB, YEAST_K,
                                        yeast_truth)
@@ -180,7 +181,8 @@ def build(cfg: YeastConfig = YeastConfig(),
     return CaseSetup(name="yeast", trainer=trainer, init_params=init_params,
                      predict=predict, weights_fn=weights_fn, dataset=dataset,
                      loss_on_data=loss_on_data,
-                     extras={"mlp_apply": mlp_apply}, unravel=unravel)
+                     extras={"mlp_apply": mlp_apply}, unravel=unravel,
+                     recipe=(build, cfg, {"dataset": dataset}))
 
 
 def main(argv=None):
@@ -200,6 +202,7 @@ def main(argv=None):
                          "RHS can be stiffer than the truth mid-training)")
     ap.add_argument("--mlp-width", type=int, default=0,
                     help="hidden width of the 7->5 MLP (0 = reference 5)")
+    ap.add_argument("--dp", type=int, default=0, help=DP_HELP)
     args = ap.parse_args(argv)
     cfg = YeastConfig(device=args.device, mode=args.mode,
                       mlp_width=args.mlp_width)
@@ -210,7 +213,7 @@ def main(argv=None):
     if args.max_steps is not None:
         cfg.max_steps = args.max_steps
     return run_case(build(cfg), n_epoch=args.epochs, out_dir=args.out,
-                    restart=args.restart)
+                    restart=args.restart, dp=args.dp)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """CRNN right-hand sides, lane-batched (port of crnn_tpu/models/crnn.py:
 make_crnn_rhs, make_crnn_scaled_rhs, make_crnn_arrhenius_rhs,
 make_crnn_reversible_rhs, the hybrid make_crnn_yeast_rhs and
-make_crnn_qssa_rhs, and make_cathode_rhs with its closed-form Jacobian and
-cathode_hrr).
+make_crnn_qssa_rhs, and make_cathode_rhs with its closed-form Jacobian,
+make_cathode_rhs_batch and cathode_hrr).
 
     du = w_out @ exp(min(w_in^T @ log(clip(y, lb, ub)) + w_b, exp_cap))
 
@@ -151,19 +151,50 @@ def _cathode_rates(logx, temp, w, exp_cap: float):
     return _capped_exp(_cathode_exponent(logx, temp, w), exp_cap)
 
 
+def _cathode_parts(t, y, args, lb, t0_kelvin, exp_cap):
+    """(weights, beta, T (B, 1), clipped y, exponent z, rates) at (t, y)."""
+    w, beta = args
+    temp = (t0_kelvin + beta / 60.0 * t)[:, None]
+    yc = clip(y, lb, 10.0)
+    z = _cathode_exponent(torch.log(yc), temp, w)
+    return w, beta, temp, yc, z, _capped_exp(z, exp_cap)
+
+
+def _cathode_chain(w, r):
+    """``A @ r`` for the sequential chain c1 -> c2 -> c3, A's entries
+    [-1; nu2, -1; nu3, -1]; ``w.w_out[..., k]`` is one stoichiometry for
+    all lanes or, with lane-batched weights, one per lane."""
+    return torch.stack([-r[:, 0],
+                        w.w_out[..., 1] * r[:, 0] - r[:, 1],
+                        w.w_out[..., 2] * r[:, 1] - r[:, 2]], dim=1)
+
+
+def _cathode_jac(w, y, yc, z, lb, exp_cap):
+    """``J = A diag(g)``, ``g_i = r_i n_i / y_i``, zeroed outside the y clip
+    window and past the exp cap (the derivative of the clipped RHS)."""
+    live = (y > lb) & (y < 10.0) & (z < exp_cap)
+    g = torch.where(live, _capped_exp(z, exp_cap) * w.w_in / yc,
+                    torch.zeros_like(z))
+    zero = torch.zeros_like(g[:, 0])
+    return torch.stack([
+        torch.stack([-g[:, 0], zero, zero], dim=-1),
+        torch.stack([w.w_out[..., 1] * g[:, 0], -g[:, 1], zero], dim=-1),
+        torch.stack([zero, w.w_out[..., 2] * g[:, 1], -g[:, 2]], dim=-1),
+    ], dim=1)
+
+
 def make_cathode_rhs(lb: float, t0_kelvin: float = 373.15,
                      exp_cap: float = 32.0) -> Callable:
     """Sequential decomposition c1 -> c2 -> c3 under a linear heating ramp
     T = t0_kelvin + beta/60 * t (Cathode/src/network.jl:60-80); y is clipped
-    to [lb, 10]. ``args = (weights, beta [K/min])``; depends on t."""
+    to [lb, 10]. ``args = (weights, beta [K/min])``; the weights are one set
+    for every lane or lane-batched (every leaf (B, 3), from
+    ``p2vec_cathode`` of (B, 18) params); depends on t."""
 
     def rhs(t, y, args):
-        w, beta = args
-        temp = (t0_kelvin + beta / 60.0 * t)[:, None]
-        rates = _cathode_rates(torch.log(clip(y, lb, 10.0)), temp, w, exp_cap)
-        return torch.stack([-rates[:, 0],
-                            w.w_out[1] * rates[:, 0] - rates[:, 1],
-                            w.w_out[2] * rates[:, 1] - rates[:, 2]], dim=1)
+        w, _, _, _, _, rates = _cathode_parts(t, y, args, lb, t0_kelvin,
+                                              exp_cap)
+        return _cathode_chain(w, rates)
 
     return rhs
 
@@ -179,21 +210,41 @@ def make_cathode_jac(lb: float, t0_kelvin: float = 373.15,
     ``jac(t (B,), y (B, 3), (weights, beta)) -> (B, 3, 3)``."""
 
     def jac(t, y, args):
-        w, beta = args
-        temp = (t0_kelvin + beta / 60.0 * t)[:, None]
-        yc = clip(y, lb, 10.0)
-        z = _cathode_exponent(torch.log(yc), temp, w)
-        live = (y > lb) & (y < 10.0) & (z < exp_cap)
-        g = torch.where(live, _capped_exp(z, exp_cap) * w.w_in / yc,
-                        torch.zeros_like(z))
-        zero = torch.zeros_like(g[:, 0])
-        return torch.stack([
-            torch.stack([-g[:, 0], zero, zero], dim=-1),
-            torch.stack([w.w_out[1] * g[:, 0], -g[:, 1], zero], dim=-1),
-            torch.stack([zero, w.w_out[2] * g[:, 1], -g[:, 2]], dim=-1),
-        ], dim=1)
+        w, _, _, yc, z, _ = _cathode_parts(t, y, args, lb, t0_kelvin,
+                                           exp_cap)
+        return _cathode_jac(w, y, yc, z, lb, exp_cap)
 
     return jac
+
+
+def make_cathode_rhs_batch(lb: float, t0_kelvin: float = 373.15,
+                           exp_cap: float = 32.0):
+    """The cathode RHS for the batch-major driver
+    (``ode/batch_solve.py:batch_odesolve_rb23(..., nonautonomous=True)``),
+    port of crnn_tpu/models/crnn.py:make_cathode_rhs_batch: every lane is
+    one particle with weights of its own (``args = (w, beta)``, each leaf of
+    ``w`` (B, 3); ``beta`` 0-d or (B,) [K/min]).
+
+    Returns ``(f, f_jac)``: ``f(t (B,), y (B, 3), args) -> (B, 3)`` and
+    ``f_jac -> (du, J (B, 3, 3), ft (B, 3))`` from one evaluation of the
+    rates. J is ``make_cathode_jac``'s closed form; ``ft = df/dt = A (r
+    dz/dT) dT/dt`` with ``dz/dT = b/T + Ea 1e5/(R T^2)``, ``dT/dt =
+    beta/60``, zeroed past the exp cap."""
+    f = make_cathode_rhs(lb, t0_kelvin, exp_cap)
+
+    def f_jac(t, y, args):
+        w, beta, temp, yc, z, rates = _cathode_parts(t, y, args, lb,
+                                                     t0_kelvin, exp_cap)
+        du = _cathode_chain(w, rates)
+        jac = _cathode_jac(w, y, yc, z, lb, exp_cap)
+        dz_dt = ((w.extra["b"] / temp
+                  + (w.extra["Ea"] * 1e5) / (R_J * temp ** 2))
+                 * (beta / 60.0 * torch.ones_like(t))[:, None])
+        # a multiply by the mask, as JAX writes it
+        dr_dt = rates * dz_dt * (z < exp_cap).to(y.dtype)
+        return du, jac, _cathode_chain(w, dr_dt)
+
+    return f, f_jac
 
 
 def cathode_hrr(ts: torch.Tensor, ys: torch.Tensor, w, beta, lb: float,
@@ -204,3 +255,17 @@ def cathode_hrr(ts: torch.Tensor, ys: torch.Tensor, w, beta, lb: float,
     temp = (t0_kelvin + beta / 60.0 * ts)[:, None]
     rates = _cathode_rates(torch.log(clip(ys, lb, 10.0)), temp, w, exp_cap)
     return rates @ w.extra["delH"]
+
+
+def cathode_hrr_batch(ts: torch.Tensor, ys: torch.Tensor, w, beta, lb: float,
+                      t0_kelvin: float = 373.15,
+                      exp_cap: float = 32.0) -> torch.Tensor:
+    """``cathode_hrr`` for every particle at once, JAX's ``vmap`` of it over
+    (ys, w): ts (n_t,), ys (B, n_t, 3), lane-batched weights (leaves
+    (B, 3)) -> (B, n_t)."""
+    temp = (t0_kelvin + beta / 60.0 * ts)[:, None]
+    w_lanes = w._replace(w_in=w.w_in[:, None], w_b=w.w_b[:, None],
+                         extra={k: v[:, None] for k, v in w.extra.items()})
+    rates = _cathode_rates(torch.log(clip(ys, lb, 10.0)), temp, w_lanes,
+                           exp_cap)
+    return (rates @ w.extra["delH"][:, :, None])[..., 0]

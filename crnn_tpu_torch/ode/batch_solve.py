@@ -12,6 +12,11 @@ finished and failed lanes.
 J = U @ V, and the W-solve uses the Woodbury identity
 ``(I - h d U V)^-1 v = v + h d U (I_nr - h d V U)^-1 V v``.
 
+``nonautonomous=True`` (a t-dependent RHS, e.g. the cathode's heating
+ramp): ``f_jac`` returns ``ft = df/dt (B, ns)`` as one more, last element,
+and Shampine's ``dt*d*ft`` term is added to the k1 and k3 stage RHS, as the
+per-lane Rosenbrock23 adds it. ``f`` is then called with a ``(B,)`` t.
+
 ``unroll='scan'`` runs a fixed ``max_steps`` loop whose every step is
 recomputed in the backward pass (``torch.utils.checkpoint``, the
 counterpart of ``jax.checkpoint``). ``unroll='while'`` stops as soon as no
@@ -69,9 +74,6 @@ def batch_odesolve_rb23(
     nonautonomous: bool = False,
 ) -> BatchODESolution:
     """Integrate all B lanes from t0 to t1 with one f/J evaluation per step."""
-    if nonautonomous:
-        raise NotImplementedError(
-            "nonautonomous=True is not ported yet (crnn_tpu/ode/batch_solve.py)")
     if jac_mode not in ("dense", "lowrank"):
         raise ValueError(f"unknown jac_mode: {jac_mode!r}")
     if unroll not in ("scan", "while"):
@@ -82,6 +84,18 @@ def batch_odesolve_rb23(
     saveat = saveat.to(dtype)
     dtmin = dtmin_frac * (t1 - t0)
     order = 2
+
+    # f_jac's outputs: (du, J) or (du, U, V), then ft when t-dependent
+    n_out = (2 if jac_mode == "dense" else 3) + int(nonautonomous)
+
+    def jac_outputs(t, y):
+        out = f_jac(t, y, args)
+        if len(out) != n_out:
+            raise ValueError(
+                f"f_jac returned {len(out)} outputs; jac_mode={jac_mode!r} "
+                f"with nonautonomous={nonautonomous} needs {n_out}"
+                + (" (the last one df/dt)" if nonautonomous else ""))
+        return out
 
     dt_init = initial_step(f, t0, t1, y0, args, order, rtol, atol).detach()
 
@@ -100,8 +114,9 @@ def batch_odesolve_rb23(
 
         # ---- one whole-batch value + Jacobian evaluation -----------------
         hd = dt * _D
+        jac_out = jac_outputs(t, y)
         if jac_mode == "lowrank":
-            f0, u_fac, v_fac = f_jac(t, y, args)
+            f0, u_fac, v_fac = jac_out[:3]
             nr = u_fac.shape[1]
             # inner matrix M = I_nr - h*d * V U, shared by all three solves
             m = torch.eye(nr, dtype=dtype, device=device)[None] \
@@ -116,7 +131,7 @@ def batch_odesolve_rb23(
                 return v + hd[:, None] * torch.einsum(
                     "jq,bq->bj", u_fac, torch.einsum("bqr,br->bq", m_inv, s_r))
         else:
-            f0, jac = f_jac(t, y, args)
+            f0, jac = jac_out[:2]
             w = eye[None] - hd[:, None, None] * jac
             w_inv_raw, min_piv = inv_small_nopivot_minpiv(w)
             piv_good = pivot_ok(w, min_piv)
@@ -126,12 +141,15 @@ def batch_odesolve_rb23(
             def wsolve(v):
                 return torch.einsum("bij,bj->bi", w_inv, v)
 
-        k1 = wsolve(f0)
+        # Shampine's dt*d*ft stage term, in JAX's order of additions
+        dtd_ft = hd[:, None] * jac_out[-1] if nonautonomous else None
+        k1 = wsolve(f0 if dtd_ft is None else f0 + dtd_ft)
         f1 = f(t + 0.5 * dt, y + (0.5 * dt)[:, None] * k1, args)
         k2 = wsolve(f1 - k1) + k1
         y1 = y + dt[:, None] * k2
         f2 = f(t + dt, y1, args)
-        k3 = wsolve(f2 - _E32 * (k2 - f1) - 2.0 * (k1 - f0))
+        rhs3 = f2 - _E32 * (k2 - f1) - 2.0 * (k1 - f0)
+        k3 = wsolve(rhs3 if dtd_ft is None else rhs3 + dtd_ft)
         y_err = (dt / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
 
         # piv_good: a near-zero no-pivot diagonal gives a finite but wrong

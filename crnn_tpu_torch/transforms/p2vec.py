@@ -168,15 +168,18 @@ def p2vec_cathode(p: torch.Tensor) -> CRNNWeights:
     """17 named kinetic scalars and a slope: p = [lnA(3) | Ea(3) | b(3) |
     delH(3) | order(3) | nu(2) | slope] (Cathode/src/network.jl:27-50).
     ``w_in`` holds the reaction orders, ``w_b`` lnA, ``w_out`` the
-    stoichiometry [1, nu], ``extra`` Ea, b and delH."""
-    slope = p[17] * 10.0
-    w_a = clip(p[0:3] * (slope * 20.0), 0.0, 50.0)
-    w_in_ea = clip(absolute(p[3:6]), 0.0, 3.0)
-    w_delh = clip(absolute(p[9:12]) * 100.0, 10.0, 300.0)
-    w_in_order = clip(p[12:15], 0.01, 10.0)
-    w_out_nu = clip(torch.cat([p.new_ones(1), p[15:17]]), 0.01, 5.0)
+    stoichiometry [1, nu], ``extra`` Ea, b and delH. Lane-batched for
+    ``p (B, 18)``: every leaf (B, 3), JAX's ``vmap(p2vec_cathode)``."""
+    slope = p[..., 17:18] * 10.0
+    w_a = clip(p[..., 0:3] * (slope * 20.0), 0.0, 50.0)
+    w_in_ea = clip(absolute(p[..., 3:6]), 0.0, 3.0)
+    w_delh = clip(absolute(p[..., 9:12]) * 100.0, 10.0, 300.0)
+    w_in_order = clip(p[..., 12:15], 0.01, 10.0)
+    w_out_nu = clip(torch.cat([p.new_ones(p.shape[:-1] + (1,)),
+                               p[..., 15:17]], dim=-1), 0.01, 5.0)
     return CRNNWeights(w_in=w_in_order, w_b=w_a, w_out=w_out_nu,
-                       extra={"Ea": w_in_ea, "b": p[6:9], "delH": w_delh})
+                       extra={"Ea": w_in_ea, "b": p[..., 6:9],
+                              "delH": w_delh})
 
 
 def init_params_cathode(gen: torch.Generator, dtype=torch.float64,

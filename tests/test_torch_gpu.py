@@ -4,7 +4,8 @@ on the kernel path; and the ODE suite on the card (the ESDIRK and
 AutoSwitch solvers against the CPU, per-lane case2 under them, robertson's
 adjoint path, w_out_mask and LM finish); kernel 4 at the hybrid cases' shapes
 and their epochs on the kernel path; HyChem and cathode on the card
-against the CPU. Every test carries the ``gpu`` marker
+against the CPU; a cathode UQ iteration on the card against the CPU, and
+``run_case(dp=1)`` on nccl against the batch epoch. Every test carries the ``gpu`` marker
 and skips where no card is present. The file imports no JAX, so on the card's machine (no
 JAX there) it runs without the repository's conftest:
 
@@ -839,3 +840,43 @@ def test_hychem_and_cathode_on_card_equal_cpu(cuda_device):
         for k in ("loss_train", "loss_val", "grad_norm"):
             np.testing.assert_allclose(getattr(ms[0], k).item(),
                                        getattr(ms[1], k).item(), rtol=1e-9)
+
+
+def test_uq_batch_major_iteration_on_card_equals_cpu(cuda_device):
+    """One batch-major SVGD iteration of the cathode UQ case (16 particles,
+    f64, 128 steps) on the card against the CPU at rtol 1e-9 per
+    component; the same seeded particles and replicate curves on both."""
+    from crnn_tpu_torch.cases.cathode_uq import CathodeUQConfig, run_uq
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg = CathodeUQConfig(num_particles=16, maxiters=128, n_iters=1,
+                              device=device)
+        p, info = run_uq(cfg, verbose=False)
+        out[device] = (p.cpu().numpy(), info["loss_train"], info["loss_val"])
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-9)
+    assert np.isfinite(out["cuda"][1]).all()
+
+
+def test_dp1_case2_epoch_on_nccl_equals_batch_epoch(cuda_device, tmp_path):
+    """``run_case(dp=1)`` on a world of one (nccl) against the batch
+    Trainer's epoch: per-lane case2, f64, 4 + 2 experiments, at 1e-9, with
+    kernel 1 launched in the dp epoch."""
+    from crnn_tpu_torch.cases import case2
+    from crnn_tpu_torch.cases.base import run_case
+
+    cfg = case2.Case2Config(n_exp_train=4, n_exp_test=2, batch_major=False,
+                            dtype="float64")
+    ref = case2.build(cfg)
+    state_b, m = ref.trainer.epoch(ref.trainer.init(ref.init_params))
+    tk.arrhenius_rhs_batched.launches = 0
+    state, hist = run_case(case2.build(cfg, dataset=ref.dataset), 1,
+                           out_dir=str(tmp_path), dp=1, log_every=0)
+    assert tk.arrhenius_rhs_batched.launches > 0
+    np.testing.assert_allclose(hist["loss_train"], [m.loss_train.item()],
+                               rtol=1e-9)
+    np.testing.assert_allclose(hist["loss_val"], [m.loss_val.item()],
+                               rtol=1e-9)
+    np.testing.assert_allclose(state.params.cpu().numpy(),
+                               state_b.params.cpu().numpy(), rtol=1e-9)

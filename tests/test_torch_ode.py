@@ -149,8 +149,15 @@ def test_scan_gradient_matches_jax(jac_mode):
 def test_unsupported_options_raise():
     p, u0 = torch.from_numpy(_params()), _u0()
     saveat = np.linspace(0.0, T1, 5)
-    with pytest.raises(NotImplementedError):
-        tbs.batch_odesolve_rb23(None, None, torch.from_numpy(u0), 0.0, T1,
-                                torch.from_numpy(saveat), nonautonomous=True)
+    # nonautonomous=True needs f_jac's trailing df/dt: one output short
+    # (the dense (du, J) of an autonomous RHS) raises
+    w = t_p2vec(p, NS, NR)
+    rhs_op, rhs_jac_op = tk.make_arrhenius_ops(LB, UB)
+    with pytest.raises(ValueError, match="df/dt"):
+        tbs.batch_odesolve_rb23(
+            lambda t, y, w_: rhs_op(y, w_.w_in, w_.w_b, w_.w_out),
+            lambda t, y, w_: rhs_jac_op(y, w_.w_in, w_.w_b, w_.w_out),
+            torch.from_numpy(u0), 0.0, T1, torch.from_numpy(saveat), args=w,
+            max_steps=4, nonautonomous=True)
     with pytest.raises(ValueError):
         _torch_solve(p, u0, saveat, "lowrank", "fori", 8)
