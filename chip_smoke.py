@@ -178,7 +178,25 @@ Phases, each printed with the seconds it took:
    case2 epoch at full width through ``run_case(dp=1)`` against the batch
    Trainer's epoch at 1e-9, kernels 1-2 counted over the dp epoch (each
    > 0); (b) one sharded SVGD step (``build_uq(dp=1)``) against the local
-   step, 100 particles at a reduced 128 steps, at 1e-12.
+   step, 100 particles at a reduced 128 steps, at 1e-12;
+17. compensated f32, after phase 16 and before the children of phases
+   13-15, on phase 9's robertson dataset and trained params: the
+   compensated-f32 batch Rosenbrock23 (``ode/compensated.py``) with every
+   f on kernel 4 and every step's f0 and J from one launch of kernel 5:
+   (a) ``two_sum`` on 2^20 f32 pairs on the card, s + e = a + b in f64;
+   (b) f64 against ``batch_odesolve_rb23`` (dense), both on the kernels:
+   n_steps exact, every lane done, ys within rtol 1e-10 / atol 1e-12; (c)
+   f32 on the kernels against its plain path and against the CPU, each
+   state component within 1e-4 of its largest value or 3x the plain
+   path's one-ulp move, and differing from the plain f32 driver's ys; (d)
+   one f32 gradient of the full-horizon loss inside
+   ``infra.profiling.trace``: finite, kernels 4-5 counted (> 0) and among
+   the trace's CUDA kernels, CUDA kernels per solver step printed; (e)
+   ``scripts/robertson_comp32_torch.py`` at 3 epochs of lr 5e-3 a variant:
+   ms per epoch and f64-judged losses (finite); (f), beside the children
+   of phases 13-15: ``python -m crnn_tpu_torch.cli case1 --epochs 1`` on
+   its default device and ``... cli list`` in subprocesses: exit 0, one
+   metrics line.
 
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
@@ -2793,6 +2811,222 @@ def run_data_parallel() -> dict:
     return out
 
 
+# --- phase 17: the compensated-f32 batch Rosenbrock23 on kernels 4-5 --------
+
+def comp32_script():
+    """``scripts/robertson_comp32_torch.py`` as a module."""
+    import importlib.util
+
+    path = HERE / "scripts" / "robertson_comp32_torch.py"
+    spec = importlib.util.spec_from_file_location("robertson_comp32_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def gate_per_component(label, out, ref, witness, rtol=1e-4):
+    """Each state component of ``out`` within the larger of ``rtol`` of its
+    largest |value| in ``ref`` and 3x ``witness`` (the same component's
+    move under one ulp of the params); fails otherwise."""
+    dims = tuple(range(ref.dim() - 1))
+    err = (out - ref).abs().amax(dim=dims)
+    tol = torch.maximum(rtol * ref.abs().amax(dim=dims), 3.0 * witness)
+    ok = bool(torch.isfinite(out).all()) and bool((err <= tol).all())
+    print(f"  {label}: max err per component {err.tolist()}, gate "
+          f"{tol.tolist()}; ok={ok}")
+    if not ok:
+        fail(f"17: {label} disagree")
+
+
+def trace_kernels(logdir: str) -> tuple:
+    """(kernel events by name, trace bytes) of the one trace in
+    ``logdir``."""
+    import re
+    from collections import Counter
+
+    (path,) = Path(logdir).glob("*.pt.trace.json")
+    raw = path.read_bytes()
+    names = re.findall(rb'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"', raw)
+    if not names:      # another field order: parse the whole trace
+        names = [e["name"].encode() for e in json.loads(raw)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    return Counter(names), len(raw)
+
+
+def run_compensated(setup, trained) -> dict:
+    """Phase 17 on phase 9's robertson dataset (f64, 20 + 5 experiments, 40
+    save points, ns=3, nr=6, 192 steps, rtol 1e-3) and trained params: the
+    compensated-f32 batch Rosenbrock23 with every f on kernel 4 and every
+    step's f0 and J on kernel 5. (a) ``two_sum`` on 2^20 f32 pairs across
+    60 binades on the card: s + e equals a + b in f64; (b) f64: the
+    compensated driver against ``batch_odesolve_rb23`` (dense), both on
+    the kernels: n_steps exact, every lane done, ys within rtol 1e-10 /
+    atol 1e-12; (c) f32: the compensated driver on the kernels against its
+    plain path on the card and against the CPU, each state component
+    within 1e-4 of its largest value or 3x the plain path's move under one
+    ulp of the params, and its ys differ from the plain f32 driver's; (d)
+    one f32 gradient of the full-horizon training loss inside
+    ``infra.profiling.trace`` with kernels 4-5 counted from 0: finite,
+    both counted, the trace written with both kernels among its CUDA
+    kernel events, CUDA kernels per solver step printed; (e)
+    ``scripts/robertson_comp32_torch.py`` at a cut depth (3 epochs at lr
+    5e-3 per variant, the f64 judge). (f) is ``cli_child``. Returns the
+    kernel rows' numbers."""
+    import numpy as np
+
+    from crnn_tpu_torch.infra.profiling import trace
+    from crnn_tpu_torch.ode.compensated import two_sum
+    from crnn_tpu_torch.ops.crnn_kernels import (crnn_rhs_batched,
+                                                 crnn_rhs_jac_batched)
+
+    counters = (crnn_rhs_batched, crnn_rhs_jac_batched)
+    script = comp32_script()
+    cfg = setup.extras["config"]
+    ds = setup.dataset
+
+    # (a) two_sum on the card
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    n = 1 << 20
+    a, b = (torch.from_numpy((rng.standard_normal(n)
+                              * 2.0 ** rng.integers(-30, 30, n))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    s, e = two_sum(a, b)
+    exact = bool(torch.equal(s.double() + e.double(), a.double() + b.double()))
+    print(f"  17(a) two_sum on {n} f32 pairs: s + e == a + b in f64 {exact}, "
+          f"{int((e != 0).sum())} non-zero errors; "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not exact:
+        fail("17(a): two_sum is not error-free on the card")
+
+    def solve(dtype, comp=True, plain=False, params=trained, device=None):
+        run = script.make_solve(cfg, setup, dtype, comp, plain,
+                                device=device)
+        with torch.no_grad():
+            return run(params, ds.u0)
+
+    # (b) f64: compensated against the plain batch driver, both on kernels
+    t0 = time.perf_counter()
+    comp64, plain64 = solve(torch.float64), solve(torch.float64, comp=False)
+    torch.cuda.synchronize()
+    rel = float(((comp64.ys - plain64.ys).abs()
+                 / (1e-12 + 1e-10 * plain64.ys.abs())).max())
+    same_steps = torch.equal(comp64.n_steps, plain64.n_steps)
+    print(f"  17(b) f64 compensated vs batch driver (kernels 4-5, "
+          f"{ds.u0.shape[0]} lanes): "
+          f"n_steps equal {same_steps} (max {int(comp64.n_steps.max())}), "
+          f"all done {bool(comp64.success.all())}, max |diff| / (1e-12 + "
+          f"1e-10 |ys|) {rel:.3e}; {time.perf_counter() - t0:.2f} s")
+    if not (same_steps and bool(comp64.success.all())
+            and bool(plain64.success.all()) and rel <= 1.0):
+        fail("17(b): the f64 compensated driver differs from the batch "
+             "driver")
+
+    # (c) f32: kernel path against the plain path and against the CPU
+    t0 = time.perf_counter()
+    p32 = trained.float()
+    ys_k = solve(torch.float32).ys
+    ys_p = solve(torch.float32, plain=True).ys
+    p_ulp = torch.nextafter(p32, torch.full_like(p32, math.inf))
+    witness = (solve(torch.float32, plain=True, params=p_ulp).ys
+               - ys_p).abs().amax(dim=(0, 1))
+    ys_cpu = solve(torch.float32, device="cpu").ys.to(ys_k.device)
+    ys_f32 = solve(torch.float32, comp=False).ys
+    torch.cuda.synchronize()
+    print(f"  17(c) f32 one-ulp witness per component (plain path) "
+          f"{witness.tolist()}")
+    gate_per_component("17(c) f32 compensated kernel vs plain path", ys_k,
+                       ys_p, witness)
+    gate_per_component("17(c) f32 compensated card vs CPU", ys_k, ys_cpu,
+                       witness)
+    moved = float((ys_k - ys_f32).abs().max())
+    print(f"  17(c) compensation acts: max |comp - plain f32 driver| "
+          f"{moved:.3e}; {time.perf_counter() - t0:.2f} s")
+    if not moved > 0.0:
+        fail("17(c): the compensated f32 ys equal the plain driver's")
+
+    # (d) one f32 gradient under the profiler
+    t0 = time.perf_counter()
+    train_loss, _ = script.make_variant(cfg, setup, torch.float32, True)
+    q = p32.clone().requires_grad_(True)
+    with tempfile.TemporaryDirectory() as logdir:
+        for c in counters:
+            c.launches = 0
+        with trace(logdir):
+            (g,) = torch.autograd.grad(train_loss(q), q)
+        launches = [c.launches for c in counters]
+        t_grad = time.perf_counter() - t0
+        kernels, n_bytes = trace_kernels(logdir)
+    n_kernels = sum(kernels.values())
+    traced = {k: sum(n for name, n in kernels.items()
+                     if f"{k}_kernel<".encode() in name)
+              for k in ("crnn_rhs", "crnn_rhs_jac")}
+    per_step = n_kernels / cfg.max_steps
+    print(f"  17(d) f32 gradient through the compensated driver under the "
+          f"profiler: {t_grad:.2f} s; launches kernel 4 {launches[0]}, "
+          f"kernel 5 {launches[1]}; trace {n_bytes / 2**20:.1f} MiB, "
+          f"{n_kernels} CUDA kernels ({per_step:.1f} per solver step, "
+          f"forward, recompute and backward), crnn_rhs {traced['crnn_rhs']}, "
+          f"crnn_rhs_jac {traced['crnn_rhs_jac']}; grad finite "
+          f"{bool(torch.isfinite(g).all())}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (bool(torch.isfinite(g).all()) and min(launches) > 0
+            and min(traced.values()) > 0):
+        fail("17(d): the gradient is not finite, a kernel was not launched "
+             "or is not in the trace")
+
+    # (e) the experiment script at a cut depth
+    t0 = time.perf_counter()
+    results = script.run(epochs_per_stage=3, lrs=(5e-3,), device="cuda",
+                         setup=setup)["results"]
+    for name, r in results.items():
+        print(f"  17(e) {name}: {r['ms_per_epoch']:.1f} ms/epoch, own train "
+              f"{r['own_train']:.4e}, f64-judged train {r['f64_train']:.4e}, "
+              f"val {r['f64_val']:.4e}")
+    print(f"  17(e): {time.perf_counter() - t0:.2f} s")
+    if not all(math.isfinite(r[k]) for r in results.values()
+               for k in ("own_train", "f64_train", "f64_val")):
+        fail("17(e): a variant's loss is not finite")
+
+    return {
+        "crnn_rhs": {"comp32_grad_launches": launches[0],
+                     "comp32_cuda_kernels_per_step": per_step,
+                     "comp32_grad_traced_s": t_grad,
+                     **{f"comp32_{k}_ms_per_epoch": r["ms_per_epoch"]
+                        for k, r in results.items()}},
+        "crnn_rhs_jac": {"comp32_grad_launches": launches[1]}}
+
+
+def cli_child(out_path: str):
+    """Phase 17(f) in a process of its own beside the children of phases
+    13-15 (it times nothing into the kernels line): ``python -m
+    crnn_tpu_torch.cli list`` and ``... cli case1 --epochs 1`` in
+    subprocesses on their default device, each exiting 0, the case writing
+    one metrics line; its output to a log beside ``out_path``."""
+    with open(out_path + ".log", "w") as log, \
+            contextlib.redirect_stdout(log), \
+            tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        runs = [subprocess.run(
+            [sys.executable, "-m", "crnn_tpu_torch.cli", *args], cwd=HERE,
+            capture_output=True, text=True, timeout=600)
+            for args in (("list",), ("case1", "--epochs", "1", "--out", out))]
+        metrics = Path(out) / "case1" / "metrics.jsonl"
+        n_lines = (len(metrics.read_text().splitlines())
+                   if metrics.exists() else 0)
+        print(f"  17(f) cli list rc {runs[0].returncode}, cli case1 --epochs "
+              f"1 rc {runs[1].returncode}: "
+              f"{runs[1].stdout.strip().splitlines()[-1:]}, metrics.jsonl "
+              f"lines {n_lines}; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        if not (runs[0].returncode == 0 and runs[1].returncode == 0
+                and n_lines == 1):
+            fail("17(f): the cli failed: " + runs[1].stderr[-2000:])
+    Path(out_path).write_text(json.dumps({"seconds":
+                                          time.perf_counter() - t0}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -2854,7 +3088,7 @@ class Background:
 
 
 def run_phases(bg: Background) -> int:
-    """Phases 1-16 and the closing lines; ``bg`` holds the CPU work that
+    """Phases 1-17 and the closing lines; ``bg`` holds the CPU work that
     runs beside them (``cpu_references``, ``lm_cpu_references``,
     ``uq_cpu_references``) and phases 14-15 on the card."""
     def refs():
@@ -3025,15 +3259,21 @@ def run_phases(bg: Background) -> int:
         kernel_row.update(dp_rows["arrhenius_rhs"])
         jac_row.update(dp_rows["arrhenius_rhs_jac"])
 
+    with phase("17 compensated f32"):
+        comp_rows = run_compensated(rob_setup, rob_trained)
+        iso_row.update(comp_rows["crnn_rhs"])
+        iso_jac_row.update(comp_rows["crnn_rhs_jac"])
+
     # phases 13-15 run on the card in four processes of their own, beside
     # one another, after every phase that times into the kernels line: no
-    # number of phases 1-12 and 16 is taken beside them. Each part of
+    # number of phases 1-12, 16 and 17 is taken beside them. Each part of
     # phase 13 draws from a generator of its own
-    with phase("13-15 (13(a), 13(b), 14 and 15 beside one another)"):
+    with phase("13-15 (13(a), 13(b), 14, 15 and 17(f) beside one another)"):
         bg.start("phase13a", hybrid_child, "a", 17)
         bg.start("phase13b", hybrid_child, "b", 19)
         bg.start("phase14", single_fit_child, bg.path("refs.json"))
         bg.start("phase15", uq_child)
+        bg.start("phase17f", cli_child)
         for part in ("a", "b"):
             iso_row.update(bg.result(f"phase13{part}"))
             print(Path(bg.path(f"phase13{part}.json") + ".log").read_text(),
@@ -3045,6 +3285,8 @@ def run_phases(bg: Background) -> int:
         print(Path(bg.path("phase15.json") + ".log").read_text(), end="")
         uq = uq_card_vs_cpu(uq_card, bg.result("uq_refs"))
         print("UQ: " + json.dumps(uq))
+        bg.result("phase17f")
+        print(Path(bg.path("phase17f.json") + ".log").read_text(), end="")
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("library_ms: null for every kernel: no single PyTorch call computes "

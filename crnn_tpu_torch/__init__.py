@@ -54,3 +54,16 @@ def absolute(x: torch.Tensor) -> torch.Tensor:
     """``jnp.abs`` semantics: the gradient at 0 is 1, as JAX's
     ``select(x >= 0, g, -g)`` gives it; ``torch.abs`` gives 0 there."""
     return torch.where(x >= 0, x, -x)
+
+
+# the top-level solver API, as crnn_tpu's; after clip and absolute, which the
+# ode modules import from here
+from crnn_tpu_torch.ode import (  # noqa: E402,F401
+    TRBDF2,
+    AutoSwitch,
+    Kvaerno3,
+    ODESolution,
+    Rosenbrock23,
+    Tsit5,
+    odesolve,
+)

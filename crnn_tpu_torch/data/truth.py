@@ -167,3 +167,15 @@ def yeast_truth(t, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.stack([j0 - r1, 2.0 * r1 - r2 - r6, r2 - r3, r3 - r4 - r8,
                         r2 - r4 - r6, -2.0 * r1 + 2.0 * r3 - r5,
                         phi * r8 - r7], dim=1)
+
+
+# name -> (truth, rate constants); case2's k is per experiment (Arrhenius)
+TRUTH_REGISTRY = {
+    "case1": (case1_truth, CASE1_K),
+    "case2": (case2_truth, None),
+    "case3": (case3_truth, CASE3_K),
+    "robertson": (robertson_truth, ROBERTSON_K),
+    "reversible": (reversible_truth, REVERSIBLE_K),
+    "grn": (grn_truth, GRN_K),
+    "yeast": (yeast_truth, YEAST_K),
+}

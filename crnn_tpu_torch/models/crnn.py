@@ -32,6 +32,9 @@ from crnn_tpu_torch.ode.base import autonomous
 from crnn_tpu_torch.ops.crnn_kernels import (make_arrhenius_ops,
                                              make_crnn_rhs_op)
 
+# gas constant, kcal/(mol K): the Arrhenius feature is -1/(R_KCAL * T)
+R_KCAL = 1.98720425864083e-3
+
 
 def make_crnn_rhs(lb: float, ub: float, exp_cap: float = 32.0,
                   plain: bool = False) -> Callable:

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from crnn_tpu_torch import clip
 from crnn_tpu_torch.ode.base import hermite_interp_matrix_from_endpoints
-from crnn_tpu_torch.ode.controller import (error_norm, initial_step,
+from crnn_tpu_torch.ode.controller import (error_norm, first_step,
                                            propose_dt)
 from crnn_tpu_torch.ode.linsolve import inv_small_nopivot_minpiv, pivot_ok
 
@@ -64,6 +64,7 @@ def batch_odesolve_rb23(
     args: Any = None,
     rtol=1e-3,
     atol=1e-6,
+    dt0=None,
     max_steps: int = 4096,
     unroll: str = "scan",
     safety: float = 0.9,
@@ -73,7 +74,9 @@ def batch_odesolve_rb23(
     jac_mode: str = "dense",
     nonautonomous: bool = False,
 ) -> BatchODESolution:
-    """Integrate all B lanes from t0 to t1 with one f/J evaluation per step."""
+    """Integrate all B lanes from t0 to t1 with one f/J evaluation per step.
+    ``dt0``: the first step, a scalar or per lane ``(B,)``; None takes
+    Hairer's ``initial_step``."""
     if jac_mode not in ("dense", "lowrank"):
         raise ValueError(f"unknown jac_mode: {jac_mode!r}")
     if unroll not in ("scan", "while"):
@@ -97,7 +100,7 @@ def batch_odesolve_rb23(
                 + (" (the last one df/dt)" if nonautonomous else ""))
         return out
 
-    dt_init = initial_step(f, t0, t1, y0, args, order, rtol, atol).detach()
+    dt_init = first_step(dt0, f, t0, t1, y0, args, order, rtol, atol)
 
     ys0 = torch.where((saveat <= t0)[None, :, None], y0[:, None, :],
                       torch.zeros((b, saveat.shape[0], ns), dtype=dtype,

@@ -77,3 +77,15 @@ def initial_step(f, t0, t1, y0, args, order, rtol, atol):
     h1 = torch.where(dmax <= 1e-15, torch.maximum(small, h0 * 1e-3),
                      (0.01 / torch.maximum(dmax, tiny)) ** (1.0 / (order + 1.0)))
     return torch.clamp(torch.minimum(100.0 * h0, h1), max=span)
+
+
+def first_step(dt0, f, t0, t1, y0, args, order, rtol, atol):
+    """Every lane's first step, ``(B,)`` in y0's dtype, detached (JAX's
+    ``stop_gradient``): the caller's ``dt0`` (a scalar or ``(B,)``)
+    broadcast, or ``initial_step`` where it is None."""
+    if dt0 is None:
+        dt = initial_step(f, t0, t1, y0, args, order, rtol, atol)
+    else:
+        dt = torch.as_tensor(dt0, dtype=y0.dtype, device=y0.device)
+        dt = dt.expand(y0.shape[0])
+    return dt.detach()

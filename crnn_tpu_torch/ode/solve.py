@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from crnn_tpu_torch import clip
 from crnn_tpu_torch.ode.base import RHS, Solver
-from crnn_tpu_torch.ode.controller import (error_norm, initial_step,
+from crnn_tpu_torch.ode.controller import (error_norm, first_step,
                                            propose_dt, propose_dt_pi)
 
 _RUNNING = 0
@@ -88,6 +88,7 @@ def odesolve(
     args: Any = None,
     rtol=1e-3,
     atol=1e-6,
+    dt0=None,
     max_steps: int = 4096,
     unroll: str = "scan",
     safety: float = 0.9,
@@ -102,6 +103,8 @@ def odesolve(
 
     ``f(t (B,), y (B, ns), args) -> (B, ns)``. ``atol`` may be a per-species
     vector (ns,).
+    ``dt0``: the first step, a scalar or per lane ``(B,)``; None takes
+    Hairer's ``initial_step``. It carries no gradient.
     ``controller``: 'i' (integral) or 'pi' (proportional-integral).
     ``event_fn(t (B,), y (B, ns), args) -> (B,) bool`` terminates a lane
     after an accepted step; its later save times are forward-filled with
@@ -119,8 +122,8 @@ def odesolve(
         atol = atol.to(dtype)
     dtmin = dtmin_frac * (t1 - t0)
 
-    dt_init = initial_step(f, t0, t1, y0, args, solver.order, rtol,
-                           atol).detach()
+    dt_init = first_step(dt0, f, t0, t1, y0, args, solver.order, rtol,
+                         atol)
 
     t_init = torch.full((b,), t0, dtype=dtype, device=device)
     solver_state0 = solver.init(f, t_init, y0, args)

@@ -1,10 +1,13 @@
-"""Weight pruning (port of crnn_tpu/transforms/pruning.py:hard_threshold,
-relative_threshold, prune_case2_params). Every mask is detached, so pruned
-fine-tuning trains the kept entries only."""
+"""Weight pruning (port of crnn_tpu/transforms/pruning.py). Every mask is
+detached, so pruned fine-tuning trains the kept entries only."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from crnn_tpu_torch.transforms.p2vec import CRNNWeights
 
 
 def hard_threshold(w: torch.Tensor, cutoff: float) -> torch.Tensor:
@@ -30,3 +33,11 @@ def prune_case2_params(p: torch.Tensor, ns: int, nr: int,
     the w_in sign-tie (case2_pruning.jl:100-113)."""
     lo, hi = nr, nr * (ns + 1)
     return torch.cat([p[:lo], hard_threshold(p[lo:hi], cutoff), p[hi:]])
+
+
+def apply_w_out_cutoff(weights: CRNNWeights,
+                       cutoff: Optional[float]) -> CRNNWeights:
+    """``hard_threshold`` of w_out at ``cutoff``; None or <= 0 keeps all."""
+    if cutoff is None or cutoff <= 0:
+        return weights
+    return weights._replace(w_out=hard_threshold(weights.w_out, cutoff))

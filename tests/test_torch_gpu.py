@@ -4,8 +4,10 @@ on the kernel path; and the ODE suite on the card (the ESDIRK and
 AutoSwitch solvers against the CPU, per-lane case2 under them, robertson's
 adjoint path, w_out_mask and LM finish); kernel 4 at the hybrid cases' shapes
 and their epochs on the kernel path; HyChem and cathode on the card
-against the CPU; a cathode UQ iteration on the card against the CPU, and
-``run_case(dp=1)`` on nccl against the batch epoch. Every test carries the ``gpu`` marker
+against the CPU; a cathode UQ iteration on the card against the CPU,
+``run_case(dp=1)`` on nccl against the batch epoch, and the compensated-f32
+batch Rosenbrock23 (``two_sum`` on the card, the solve on kernels 4-5
+against its plain path). Every test carries the ``gpu`` marker
 and skips where no card is present. The file imports no JAX, so on the card's machine (no
 JAX there) it runs without the repository's conftest:
 
@@ -880,3 +882,66 @@ def test_dp1_case2_epoch_on_nccl_equals_batch_epoch(cuda_device, tmp_path):
                                rtol=1e-9)
     np.testing.assert_allclose(state.params.cpu().numpy(),
                                state_b.params.cpu().numpy(), rtol=1e-9)
+
+
+def test_two_sum_on_card_is_error_free(cuda_device):
+    """2^20 f32 pairs across 60 binades: s + e equals a + b in f64 (both
+    round the same real number; exact where the binades are close)."""
+    from crnn_tpu_torch.ode.compensated import two_sum
+
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    a, b = (torch.from_numpy((rng.standard_normal(n)
+                              * 2.0 ** rng.integers(-30, 30, n))
+                             .astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    s, e = two_sum(a, b)
+    torch.testing.assert_close(s.double() + e.double(),
+                               a.double() + b.double(), rtol=0, atol=0)
+    assert bool((e != 0).any())
+
+
+def _comp_solve(device, plain, p, u0, saveat, dtype):
+    from crnn_tpu_torch.models.crnn import make_crnn_scaled_rhs
+    from crnn_tpu_torch.ode.compensated import batch_odesolve_rb23_comp
+    from crnn_tpu_torch.transforms.p2vec import p2vec_robertson
+
+    ds = torch.ones(3, dtype=dtype, device=device)
+    f = make_crnn_scaled_rhs(1e-8, float("inf"), ds, plain=plain)
+    op = tk.make_crnn_rhs_jac_op(1e-8, float("inf"), plain=plain)
+
+    def f_jac(t, y, w):
+        du, jac = op(y, w.w_in, w.w_b, w.w_out)
+        return du * ds, jac * ds[:, None]
+
+    def ys(q):
+        return batch_odesolve_rb23_comp(
+            f, f_jac, u0.to(device, dtype), 0.0, 100.0,
+            saveat.to(device, dtype),
+            args=p2vec_robertson(q.to(device, dtype), 3, 6), rtol=1e-3,
+            atol=1e-6, max_steps=128).ys.cpu().numpy()
+    return ys
+
+
+def test_compensated_f32_solve_on_kernels_4_5(cuda_device):
+    """The f32 compensated solve at robertson's shape (20 lanes, ns=3, nr=6,
+    12 save points) with f on kernel 4 and f0, J on kernel 5, against its
+    plain path on the card: per state component within 1e-4 of its largest
+    value or 3x the plain path's move under one ulp of the params."""
+    from crnn_tpu_torch.transforms.p2vec import init_params_robertson
+
+    gen = torch.Generator().manual_seed(0)
+    p = init_params_robertson(gen, 3, 6, dtype=torch.float32, device="cpu")
+    u0 = torch.rand((20, 3), generator=gen, dtype=torch.float64) + 0.3
+    saveat = 10.0 ** torch.linspace(0.0, 2.0, 12, dtype=torch.float64)
+    tk.crnn_rhs_batched.launches = tk.crnn_rhs_jac_batched.launches = 0
+    ys_k = _comp_solve(cuda_device, False, p, u0, saveat, torch.float32)(p)
+    assert tk.crnn_rhs_batched.launches > 0
+    assert tk.crnn_rhs_jac_batched.launches > 0
+    plain = _comp_solve(cuda_device, True, p, u0, saveat, torch.float32)
+    ys_p = plain(p)
+    ulp = np.abs(plain(torch.from_numpy(np.nextafter(
+        p.numpy(), np.float32(np.inf)))) - ys_p).max(axis=(0, 1))
+    tol = np.maximum(1e-4 * np.abs(ys_p).max(axis=(0, 1)), 3.0 * ulp)
+    assert np.isfinite(ys_k).all()
+    assert np.all(np.abs(ys_k - ys_p).max(axis=(0, 1)) <= tol)
