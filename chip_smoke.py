@@ -52,10 +52,13 @@ Phases, each printed with the seconds it took:
    B=4099 in f32, with its latency bound and us per step), and kernel 2
    through phase 2's coverage;
 5. dense slice: case2 with jac_mode='dense' as shipped, 2 guarded epochs
-   through run_case with every launch counter set to 0 just before and read
-   just after; the kernel path against the plain path at rtol 1e-4 on the
-   f32 losses (train and eval) at the initial and the trained params, and
-   on a whole f64 dense epoch (loss, grad, eval losses);
+   through run_case with kernels 1 and 2 counted (``run_case2_slice``);
+   the kernel path against the plain path at rtol 1e-4 on the f32 losses
+   (train and eval) at the initial and the trained params, and at rtol
+   1e-8 on an f64 gradient and a whole f64 dense epoch (loss, grad, eval
+   losses, grad norm) at the initial params; the f32 kernel path's loss
+   and gradient there must lie beyond 1e-8 of the f64 plain path's (the
+   control: the gate catches an f32 computation);
 6. fused eval: phase 3's trained params through the whole-solve evaluator
    (counters set to 0 just before, read just after) and the while driver on
    the 30 experiments, held against each other at 5e-4 of each state
@@ -196,7 +199,18 @@ Phases, each printed with the seconds it took:
    ms per epoch and f64-judged losses (finite); (f), beside the children
    of phases 13-15: ``python -m crnn_tpu_torch.cli case1 --epochs 1`` on
    its default device and ``... cli list`` in subprocesses: exit 0, one
-   metrics line.
+   metrics line;
+18. case2 variants, after phase 17 and before the children of phases
+   13-15: case2_missing (``i_obs=(0, 1, 3, 4, 5)``, ``missing_u0=True``,
+   its data generated on the card, species 2 of u0 0.2 in the first
+   n_exp // 3 rows) and case2_pruning (``p_cutoff=0.01`` on phase 3's
+   data), as shipped otherwise, each as phase 5 (``run_case2_slice``) with
+   kernel 1 counted (its row's ``missing_launches`` and
+   ``pruning_launches``; ``launches`` stays phase 3's); under pruning also
+   at the trained params with w_out's smallest entry moved to half the
+   cutoff, where the f64 comparisons are taken and the f64 gradient must
+   be 0 at each pruned entry; the w_out entries pruned at each point
+   printed.
 
 Every kernel's row carries ``floor_ms``: the device time of one trivial
 PyTorch kernel (``torch.neg`` into a buffer) on the same y, timed as the
@@ -235,6 +249,9 @@ _HBM_BYTES_PER_S = 3.35e12
 _PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 _TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 1e-12)}
 _EPOCH_RTOL = 1e-4
+# phases 5 and 18's f64 epochs, kernel path against plain path: above their
+# gaps (at most 1.5e-10) and below an f32 computation's (checked beside)
+_F64_EPOCH_RTOL = 1e-8
 _Z_ORDERS = 2.0
 
 
@@ -1102,61 +1119,93 @@ def check_solve_kernel(setup, gen, lat) -> dict:
     return row
 
 
-def run_dense_slice(ds, gen) -> dict:
-    """Phase 5: case2 with jac_mode='dense' as shipped on the card, its
-    launches, and the kernel path against the plain path."""
+def run_case2_slice(name, fields, ds, gen, counted, move=None) -> dict:
+    """Case2 under ``Case2Config(**fields)`` on the card, as phases 5 and
+    18 drive it: 2 guarded epochs through run_case with the launch counts
+    of the kernel wrappers ``counted`` set to 0 just before and read just
+    after (each > 0), all finite, none discarded; then the kernel path
+    against the plain path (``rhs_plain=True``) on one perm: the f32 losses
+    (train and eval) at the initial and the trained params, and at
+    ``move(trained)`` where given, at rtol 1e-4; one f64 value_and_grad and
+    one f64 epoch (loss, grad, eval losses, grad norm) at the last of those
+    points (the initial params where ``move`` is None) at rtol
+    ``_F64_EPOCH_RTOL``. ``ds`` None generates the data on the card.
+    Returns the setup, the points compared, the launches in the order of
+    ``counted``, the epoch seconds, and the f64 point and its gradient on
+    the kernel path."""
     from crnn_tpu_torch.cases.base import run_case
     from crnn_tpu_torch.cases.case2 import Case2Config, build
-    from crnn_tpu_torch.ops.crnn_kernels import (arrhenius_rhs_batched,
-                                                 arrhenius_rhs_jac_batched)
 
-    cfg = Case2Config(jac_mode="dense")
     n_epoch = 2
-    setup = build(cfg, dataset=ds)
-    arrhenius_rhs_batched.launches = 0
-    arrhenius_rhs_jac_batched.launches = 0
+    t0 = time.perf_counter()
+    setup = build(Case2Config(**fields), dataset=ds)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ds = setup.dataset
+    if not (bool(ds.success.all()) and bool(torch.isfinite(ds.ys).all())):
+        fail(f"{name}: truth solve failed or produced non-finite data")
+    for wrapper in counted:
+        wrapper.launches = 0
     with tempfile.TemporaryDirectory() as out_dir:
         state, hist = run_case(setup, n_epoch, out_dir=out_dir, log_every=1)
     torch.cuda.synchronize()
-    launches = arrhenius_rhs_jac_batched.launches
-    print(f"  dense: epochs_s={hist['epoch_s']}; arrhenius_rhs_jac launches="
-          f"{launches} ({launches / n_epoch:.0f}/epoch), arrhenius_rhs "
-          f"launches={arrhenius_rhs_batched.launches}")
-    if launches == 0 or arrhenius_rhs_batched.launches == 0:
-        fail("the dense slice launched a kernel of its path 0 times")
+    launches = tuple(w.launches for w in counted)
+    print(f"  {name}: build {t_build:.2f} s; epochs_s={hist['epoch_s']}; "
+          + ", ".join(f"{w.__name__} launches={n} ({n / n_epoch:.0f}/epoch)"
+                      for w, n in zip(counted, launches)))
+    if 0 in launches:
+        fail(f"the {name} slice launched a kernel of its path 0 times")
     for k in ("loss_train", "loss_val", "grad_norm"):
         if not all(math.isfinite(v) for v in hist[k]):
-            fail(f"dense slice: non-finite {k}: {hist[k]}")
+            fail(f"{name}: non-finite {k}: {hist[k]}")
     if hist["n_skipped"]:
-        fail(f"dense slice: {hist['n_skipped']} epochs discarded")
+        fail(f"{name}: {hist['n_skipped']} epochs discarded")
 
-    perm = torch.randperm(cfg.n_exp_train, generator=gen).cuda()
-    plain = build(Case2Config(jac_mode="dense", rhs_plain=True), dataset=ds)
-    for name, params in (("initial", setup.init_params),
-                         ("trained", state.params)):
+    points = [("initial", setup.init_params), ("trained", state.params)]
+    if move is not None:
+        points.append(("moved", move(state.params)))
+    perm = torch.randperm(setup.trainer.n_exp_train, generator=gen).cuda()
+    plain = build(Case2Config(rhs_plain=True, **fields), dataset=ds)
+    for label, params in points:
         got, want = (forward_losses(s, params, perm)
                      for s in (setup, plain))
-        compare_epoch(f"dense f32 train loss ({name} params)", got[0], want[0])
-        compare_epoch(f"dense f32 eval losses ({name} params)", got[1],
+        compare_epoch(f"{name} f32 train loss ({label} params)", got[0],
+                      want[0])
+        compare_epoch(f"{name} f32 eval losses ({label} params)", got[1],
                       want[1])
 
     ds64 = ds._replace(**{k: getattr(ds, k).double() for k in (
         "u0", "ys", "ys_clean", "ts", "yscale")})
-    p64 = setup.init_params.double()
+    label, point = points[-1] if move is not None else points[0]
+    p64 = point.double()
     results = []
     for plain_rhs in (False, True):
-        s = build(Case2Config(jac_mode="dense", dtype="float64",
-                              rhs_plain=plain_rhs), dataset=ds64)
+        s = build(Case2Config(dtype="float64", rhs_plain=plain_rhs,
+                              **fields), dataset=ds64)
         loss, g = s.trainer.value_and_grad(p64, perm)
         _, m = s.trainer.epoch(s.trainer.init(p64), perm)
         results.append((loss, g, m))
     (lk, gk, mk), (lp, gp, mp) = results
-    compare_epoch("dense f64 loss", lk, lp)
-    compare_epoch("dense f64 grad", gk, gp)
-    compare_epoch("dense f64 eval losses", mk.loss_exp, mp.loss_exp)
-    compare_epoch("dense f64 grad norm", mk.grad_norm, mp.grad_norm)
-    return {"launches": launches, "launches_per_epoch": launches / n_epoch,
-            "dense_epoch_s": hist["epoch_s"]}
+    # the control: the f32 kernel path against the same f64 plain path,
+    # which the f64 gate must refuse
+    loss32, g32 = setup.trainer.value_and_grad(point, perm)
+    control = max(float(((a.double() - b).abs() / b.abs().max()).max())
+                  for a, b in ((loss32, lp), (g32, gp)))
+    rtol = _F64_EPOCH_RTOL
+    print(f"  {name} f32 control at the {label} params: the f32 kernel "
+          f"path's loss and grad lie up to {control:.3e} from the f64 plain "
+          f"path's (f64 gate {rtol:.0e})")
+    if not control > rtol:
+        fail(f"{name}: the f64 gate {rtol:.0e} would not catch an f32 "
+             "computation")
+    compare_epoch(f"{name} f64 loss", lk, lp, rtol=rtol)
+    compare_epoch(f"{name} f64 grad", gk, gp, rtol=rtol)
+    compare_epoch(f"{name} f64 eval losses", mk.loss_exp, mp.loss_exp,
+                  rtol=rtol)
+    compare_epoch(f"{name} f64 grad norm", mk.grad_norm, mp.grad_norm,
+                  rtol=rtol)
+    return {"setup": setup, "points": points, "launches": launches,
+            "epoch_s": hist["epoch_s"], "p64": p64, "grad64": gk}
 
 
 def run_fused_eval(setup, params) -> dict:
@@ -3027,6 +3076,58 @@ def cli_child(out_path: str):
                                           time.perf_counter() - t0}))
 
 
+# --- phase 18: the case2_missing and case2_pruning variants ----------------
+
+def run_case2_variants(ds, gen) -> dict:
+    """Phase 18: case2 under ``--missing`` (``i_obs=(0, 1, 3, 4, 5)``,
+    ``missing_u0=True``, its own data generated on the card) and under
+    ``--p-cutoff 0.01`` (phase 3's dataset ``ds``), as shipped otherwise,
+    each through ``run_case2_slice`` with kernel 1 counted. Under pruning
+    the comparisons also take the trained params with w_out's smallest
+    entry moved to half the cutoff, so that at least one entry is pruned,
+    and the f64 gradient must be 0 there. Returns kernel 1's launches and
+    the epoch seconds of each variant."""
+    from crnn_tpu_torch.cases.case2 import Case2Config
+    from crnn_tpu_torch.ops.crnn_kernels import arrhenius_rhs_batched
+    from crnn_tpu_torch.transforms.pruning import prune_case2_params
+
+    out = {}
+    fields = dict(i_obs=(0, 1, 3, 4, 5), missing_u0=True)
+    r = run_case2_slice("missing", fields, None, gen,
+                        (arrhenius_rhs_batched,))
+    u0, mid = r["setup"].dataset.u0, Case2Config(**fields).n_exp // 3
+    if not (bool((u0[:mid, 2] == 0.2).all())
+            and bool((u0[mid:, 2] == 0.0).all())):
+        fail(f"missing: species 2 of u0 is not 0.2 in rows [:{mid}] only")
+    out.update(missing_launches=r["launches"][0],
+               missing_epoch_s=r["epoch_s"])
+
+    cfg = Case2Config(p_cutoff=0.01)
+    lo, hi = cfg.nr, cfg.nr * (cfg.ns + 1)      # the raw w_out block
+
+    def pruned(p):
+        return prune_case2_params(p, cfg.ns, cfg.nr, cfg.p_cutoff)[lo:hi] == 0
+
+    def move(p):
+        p = p.clone()
+        i = lo + int(p[lo:hi].abs().argmin())
+        p[i] = math.copysign(cfg.p_cutoff / 2, float(p[i]))
+        return p
+
+    r = run_case2_slice("pruning", dict(p_cutoff=cfg.p_cutoff), ds, gen,
+                        (arrhenius_rhs_batched,), move)
+    for label, params in r["points"]:
+        print(f"  pruning: w_out entries pruned at the {label} params: "
+              f"{int(pruned(params).sum())} of {hi - lo}")
+    # the mask carries no gradient: 0 at every pruned entry
+    mask = pruned(r["p64"])
+    if not (bool(mask.any()) and bool((r["grad64"][lo:hi][mask] == 0).all())):
+        fail("pruning: no pruned entry, or a nonzero gradient at one")
+    out.update(pruning_launches=r["launches"][0],
+               pruning_epoch_s=r["epoch_s"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a "
@@ -3088,7 +3189,7 @@ class Background:
 
 
 def run_phases(bg: Background) -> int:
-    """Phases 1-17 and the closing lines; ``bg`` holds the CPU work that
+    """Phases 1-18 and the closing lines; ``bg`` holds the CPU work that
     runs beside them (``cpu_references``, ``lm_cpu_references``,
     ``uq_cpu_references``) and phases 14-15 on the card."""
     def refs():
@@ -3096,7 +3197,8 @@ def run_phases(bg: Background) -> int:
 
     from crnn_tpu_torch.ops import _build
     from crnn_tpu_torch.ops.crnn_kernels import (
-        arrhenius_rhs_batched, arrhenius_rhs_batched_reference)
+        arrhenius_rhs_batched, arrhenius_rhs_batched_reference,
+        arrhenius_rhs_jac_batched)
 
     t_all = time.perf_counter()
     with phase("1 device"):
@@ -3201,7 +3303,12 @@ def run_phases(bg: Background) -> int:
         solve_row = check_solve_kernel(setup, gen, lat)
 
     with phase("5 dense slice"):
-        jac_row.update(run_dense_slice(setup.dataset, gen))
+        dense = run_case2_slice(
+            "dense", dict(jac_mode="dense"), setup.dataset, gen,
+            (arrhenius_rhs_batched, arrhenius_rhs_jac_batched))
+        n_jac = dense["launches"][1]
+        jac_row.update(launches=n_jac, launches_per_epoch=n_jac / 2,
+                       dense_epoch_s=dense["epoch_s"])
 
     with phase("6 fused eval"):
         solve_row.update(run_fused_eval(setup, trained))
@@ -3264,9 +3371,12 @@ def run_phases(bg: Background) -> int:
         iso_row.update(comp_rows["crnn_rhs"])
         iso_jac_row.update(comp_rows["crnn_rhs_jac"])
 
+    with phase("18 case2 variants"):
+        kernel_row.update(run_case2_variants(setup.dataset, gen))
+
     # phases 13-15 run on the card in four processes of their own, beside
     # one another, after every phase that times into the kernels line: no
-    # number of phases 1-12, 16 and 17 is taken beside them. Each part of
+    # number of phases 1-12 and 16-18 is taken beside them. Each part of
     # phase 13 draws from a generator of its own
     with phase("13-15 (13(a), 13(b), 14, 15 and 17(f) beside one another)"):
         bg.start("phase13a", hybrid_child, "a", 17)

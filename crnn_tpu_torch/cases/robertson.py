@@ -51,12 +51,8 @@ from crnn_tpu_torch.train.optimizers import adamw_like
 from crnn_tpu_torch.transforms.p2vec import (init_params_robertson,
                                              p2vec_robertson)
 
-# per-species absolute tolerances of training (rober_crnn.jl:34) and of the
-# truth solve
-ATOL = (1e-6, 1e-8, 1e-6)
+# per-species absolute tolerances of the truth solve
 TRUTH_ATOL = (1e-10, 1e-12, 1e-10)
-# the RHS and Jacobian clip y to [lb, inf): no upper bound, as rober_crnn.jl
-UB = math.inf
 
 
 @dataclass
@@ -74,6 +70,9 @@ class RobertsonConfig:
     grad_max: float = 10.0
     rtol: float = 1e-3
     lb: float = 1e-8
+    # the RHS and Jacobian clip y to [lb, ub]: no upper bound by default, as
+    # rober_crnn.jl and the JAX package, which ignores its field (10.0)
+    ub: float = math.inf
     seed: int = 1234
     max_steps: int = 192
     mode: str = "batch"
@@ -95,6 +94,11 @@ class RobertsonConfig:
     @property
     def n_exp(self) -> int:
         return self.n_exp_train + self.n_exp_val
+
+    @property
+    def atol(self) -> torch.Tensor:
+        # per-species absolute tolerance of training (rober_crnn.jl:34)
+        return torch.tensor([1e-6, 1e-8, 1e-6], dtype=torch.float64)
 
 
 def build(cfg: RobertsonConfig = RobertsonConfig(),
@@ -129,11 +133,12 @@ def build(cfg: RobertsonConfig = RobertsonConfig(),
                 for f in ("u0", "ys", "ys_clean", "ts", "yscale")})
     t1 = float(dataset.ts[-1])
     dydt_scale = dataset.yscale / t1
-    atol = torch.tensor(ATOL, dtype=train_dtype, device=device)
+    atol = cfg.atol.to(device, train_dtype)
 
     def rhs_and_solver(plain):
-        return (make_crnn_scaled_rhs(cfg.lb, UB, dydt_scale, plain=plain),
-                Rosenbrock23(jac=make_crnn_scaled_jac(cfg.lb, UB, dydt_scale,
+        return (make_crnn_scaled_rhs(cfg.lb, cfg.ub, dydt_scale, plain=plain),
+                Rosenbrock23(jac=make_crnn_scaled_jac(cfg.lb, cfg.ub,
+                                                      dydt_scale,
                                                       plain=plain)))
 
     rhs, solver = rhs_and_solver(cfg.rhs_plain)

@@ -47,6 +47,7 @@ class AutoSwitch(Solver):
     """Composite non-stiff/stiff solver with per-lane switching."""
 
     n_stages = 3
+    implicit = True
 
     def __init__(
         self,

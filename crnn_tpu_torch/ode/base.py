@@ -52,6 +52,8 @@ class Solver:
     order: int = 1
     #: number of stage slopes stored in ``dense``
     n_stages: int = 1
+    #: True if the method handles stiff problems
+    implicit: bool = False
 
     def init(self, f: RHS, t0, y0, args) -> Any:
         return None

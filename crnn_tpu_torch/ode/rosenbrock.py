@@ -55,9 +55,9 @@ def give_jac(solver: Solver, jac) -> Solver:
     plain twin (``jac_by_forward_mode``), the function JAX's ``jacfwd``
     differentiates, as the kernel ops have no forward-mode rule; the f
     evaluations stay on the kernels. Returns ``solver``."""
-    implicit = getattr(solver, "stiff", solver)
-    if hasattr(implicit, "jac") and implicit.jac is None:
-        implicit.jac = jac
+    stiff = getattr(solver, "stiff", solver)
+    if stiff.implicit and stiff.jac is None:
+        stiff.jac = jac
     return solver
 
 
@@ -95,6 +95,7 @@ class Rosenbrock23(Solver):
 
     order = 2
     n_stages = 3  # Hermite dense: [f0, f_end, (y1-y0)/dt]
+    implicit = True
 
     def __init__(self, jac=None):
         self.jac = jac

@@ -84,6 +84,7 @@ class ESDIRK(Solver):
     """
 
     n_stages = 3  # Hermite dense: [f0, f_end, (y1-y0)/dt]
+    implicit = True
 
     def __init__(self, tableau: ESDIRKTableau, max_newton_iters: int = 8,
                  newton_rtol: float = 1e-7, newton_atol: float = 1e-10,

@@ -43,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from crnn_tpu_torch import resolve_device  # noqa: E402
 from crnn_tpu_torch.cases.robertson import (  # noqa: E402
-    ATOL, UB, RobertsonConfig, build)
+    RobertsonConfig, build)
 from crnn_tpu_torch.models.crnn import make_crnn_scaled_rhs  # noqa: E402
 from crnn_tpu_torch.ode.batch_solve import batch_odesolve_rb23  # noqa: E402
 from crnn_tpu_torch.ode.compensated import (  # noqa: E402
@@ -91,11 +91,12 @@ class ClipAdamW:
         return params + (-self.lr) * step, ClipAdamWState(mu, nu, count)
 
 
-def make_f_jac(lb: float, dydt_scale: torch.Tensor, plain: bool = False):
+def make_f_jac(lb: float, ub: float, dydt_scale: torch.Tensor,
+               plain: bool = False):
     """``f_jac(t, y, w) -> (f0, J)`` of robertson's scaled CRNN from one
     launch of the value+Jacobian kernel (``plain=True``: its plain
     version)."""
-    op = make_crnn_rhs_jac_op(lb, UB, 32.0, plain)
+    op = make_crnn_rhs_jac_op(lb, ub, 32.0, plain)
 
     def f_jac(t, y, w):
         du, jac = op(y, w.w_in, w.w_b, w.w_out)
@@ -115,9 +116,10 @@ def make_solve(cfg: RobertsonConfig, setup, dtype, compensated: bool,
     saveat = ds.ts.to(dev, dtype)
     dscale = setup.dydt_scale.to(dev, dtype)
     t1 = float(ds.ts[-1])
-    f = make_crnn_scaled_rhs(cfg.lb, UB, dscale, exp_cap=32.0, plain=plain)
-    f_jac = make_f_jac(cfg.lb, dscale, plain)
-    atol = torch.tensor(ATOL, dtype=dtype, device=dev)
+    f = make_crnn_scaled_rhs(cfg.lb, cfg.ub, dscale, exp_cap=32.0,
+                             plain=plain)
+    f_jac = make_f_jac(cfg.lb, cfg.ub, dscale, plain)
+    atol = cfg.atol.to(dev, dtype)
 
     def solve(p, u0_b):
         kw = dict(args=p2vec_robertson(p.to(dev, dtype), cfg.ns, cfg.nr),
